@@ -1,0 +1,501 @@
+"""bowtie-compatible alignment CLI (option surface of ebwt_search.cpp:332-428).
+
+Usage: python -m bowtie_tpu_torch.cli.align [options] <ebwt-base> <reads> [<hits>]
+
+This slice runs the exact-match mode (-v 0) with -k/-a/-m reporting on
+the CUDA kernels; every other mode exits 1 with a "not yet ported"
+message.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+
+from ..align.pipeline import ExactAligner
+from ..align.policy import INF, AlignStats, KPolicy
+from ..index.arrays import from_ebwt
+from ..index.ebwt_io import index_paths, read_ebwt
+from ..io.readers import ReadSource
+from ..io.sam import SamWriter
+from ..io.verbose import VerboseWriter
+from ..utils.device import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="bowtie-tpu-torch",
+        description="ultrafast short-read aligner on CUDA "
+                    "(bowtie-1-compatible)")
+    p.add_argument("-x", dest="index_opt", default=None,
+                   help="index basename (positional form deprecated)")
+    p.add_argument("ebwt_base", nargs="?", default=None)
+    p.add_argument("reads", nargs="?", default=None)
+    p.add_argument("hits", nargs="?", default=None)
+    # paired-end input
+    p.add_argument("-1", dest="mates1", default=None)
+    p.add_argument("-2", dest="mates2", default=None)
+    p.add_argument("--12", dest="tabbed", default=None)
+    p.add_argument("--interleaved", default=None)
+    p.add_argument("-I", "--minins", type=int, default=0)
+    p.add_argument("-X", "--maxins", type=int, default=250)
+    p.add_argument("--ff", action="store_true")
+    p.add_argument("--rf", action="store_true")
+    p.add_argument("--fr", action="store_true", default=True)
+    p.add_argument("--pairtries", type=int, default=100)
+    p.add_argument("--allow-contain", action="store_true")
+    # input
+    p.add_argument("-q", dest="fastq", action="store_true", default=True)
+    p.add_argument("-f", dest="fasta", action="store_true")
+    p.add_argument("-r", dest="raw", action="store_true")
+    p.add_argument("-c", dest="cmdline", action="store_true")
+    p.add_argument("-F", dest="fasta_cont", default=None, metavar="k,i")
+    p.add_argument("-s", "--skip", type=int, default=0)
+    p.add_argument("-u", "--qupto", type=int, default=None)
+    p.add_argument("-5", "--trim5", type=int, default=0)
+    p.add_argument("-3", "--trim3", type=int, default=0)
+    p.add_argument("--phred33-quals", action="store_true", default=True)
+    p.add_argument("--phred64-quals", action="store_true", default=False)
+    p.add_argument("--solexa-quals", action="store_true", default=False)
+    p.add_argument("--solexa1.3-quals", dest="solexa13", action="store_true")
+    p.add_argument("--integer-quals", action="store_true", default=False)
+    # alignment policy
+    p.add_argument("-v", dest="mismatches", type=int, default=-1)
+    p.add_argument("-n", "--seedmms", type=int, default=2)
+    p.add_argument("-e", "--maqerr", type=int, default=70)
+    p.add_argument("-l", "--seedlen", type=int, default=28)
+    p.add_argument("--nomaqround", action="store_true")
+    p.add_argument("--nofw", action="store_true")
+    p.add_argument("--norc", action="store_true")
+    p.add_argument("--maxbts", type=int, default=None)
+    p.add_argument("-y", "--tryhard", action="store_true")
+    # reporting
+    p.add_argument("-k", dest="khits", type=int, default=1)
+    p.add_argument("-a", "--all", action="store_true")
+    p.add_argument("-m", dest="mhits", type=int, default=None)
+    p.add_argument("-M", dest="sample_mhits", type=int, default=None)
+    p.add_argument("--best", action="store_true")
+    p.add_argument("--strata", action="store_true")
+    # output
+    p.add_argument("-S", "--sam", action="store_true")
+    p.add_argument("--mapq", type=int, default=255)
+    p.add_argument("--sam-nohead", action="store_true")
+    p.add_argument("--sam-nosq", action="store_true")
+    p.add_argument("--sam-RG", action="append", default=None,
+                   help="field for the @RG header; repeatable, fields "
+                        "joined with tabs (ebwt_search.cpp:791-795)")
+    p.add_argument("--fullref", action="store_true")
+    p.add_argument("--no-qname-trunc", action="store_true")
+    p.add_argument("--refidx", action="store_true")
+    p.add_argument("-B", "--offbase", type=int, default=0)
+    p.add_argument("--suppress", default=None)
+    p.add_argument("--cost", action="store_true")
+    p.add_argument("--showseed", action="store_true")
+    p.add_argument("--partition", type=int, default=0)
+    p.add_argument("--un", default=None)
+    p.add_argument("--al", default=None)
+    p.add_argument("--max", dest="maxfile", default=None)
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("-t", "--time", action="store_true")
+    # performance
+    p.add_argument("-p", "--threads", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=8192,
+                   help="reads per device batch")
+    p.add_argument("--reads-per-batch", type=int, default=None,
+                   help="alias of --batch-size (bowtie compat)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--stats", action="store_true",
+                   help="print aligner metrics (AlignerMetrics analog)")
+    # accepted-for-compatibility flags (no-ops in this architecture;
+    # single-stream batched output is already deterministic, and the
+    # index lives in device memory rather than mmap/SysV shm)
+    p.add_argument("--reorder", action="store_true")
+    p.add_argument("--mm", action="store_true")
+    p.add_argument("--shmem", action="store_true")
+    p.add_argument("--mmsweep", action="store_true")
+    p.add_argument("--chunkmbs", type=int, default=64)
+    p.add_argument("--pairtries-unused", dest="_pt", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--prewidth", type=int, default=1)
+    p.add_argument("--large-index", action="store_true",
+                   help="prefer the .ebwtl variant if both exist")
+    p.add_argument("-o", "--offrate", type=int, default=-1,
+                   help="re-thin the SA sample at load (must be >= the"
+                        " index's offrate; ebwt.h:438-441)")
+    p.add_argument("--no-unal", action="store_true",
+                   help="suppress SAM records for unaligned reads")
+    p.add_argument("--version", action="store_true")
+    p.add_argument("-Q", "--quals", default=None,
+                   help="QV files (colorspace-era; ignored, like the "
+                        "reference since colorspace removal in 1.3.0)")
+    p.add_argument("--Q1", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--Q2", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--usage", action="help", help=argparse.SUPPRESS)
+    # long aliases (getopt table, ebwt_search.cpp:332-428)
+    p.add_argument("--khits", dest="khits", type=int)
+    p.add_argument("--mhits", dest="mhits", type=int)
+    p.add_argument("--sam-noSQ", dest="sam_nosq", action="store_true")
+    p.add_argument("--sam-no-qname-trunc", dest="no_qname_trunc",
+                   action="store_true")
+    p.add_argument("--hadoopout", action="store_true",
+                   help="Hadoop streaming counters on stderr "
+                        "(hit.h:338-344)")
+    # legacy/debug/perf-tuning flags accepted for compatibility; they
+    # select internal strategies that have no analog (or are always-on)
+    # in the batched architecture
+    p.add_argument("--pev2", action="store_true",
+                   help="use PairedBWAlignerV2 for paired-end")
+    for flag in ("--filepar", "--noreconcile", "--strandfix",
+                 "--better", "--oldbest", "--stateful", "--phased",
+                 "--reportopps", "--sanity", "--startverbose",
+                 "--chunkverbose", "--pause"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    for flag, dv in (("--cachelim", 0), ("--cachesz", 0),
+                     ("--chunksz", 0), ("--isarate", -1),
+                     ("--mixthresh", 4), ("--thread-ceiling", 0)):
+        p.add_argument(flag, type=int, default=dv,
+                       help=argparse.SUPPRESS)
+    p.add_argument("--reportse", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--thread-piddir", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--orig", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--range", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--wrapper", default=None, help=argparse.SUPPRESS)
+    return p
+
+
+_IDX_CACHE: OrderedDict = OrderedDict()
+
+
+def _index_key(base: str):
+    f1, _f2, _ = index_paths(base)
+    st = os.stat(f1)
+    return (base, st.st_mtime_ns, st.st_size)
+
+
+def read_ebwt_cached(base: str):
+    """Process-level LRU of parsed indexes: repeated in-process CLI
+    invocations (tests, library use, the -A argfile batch mode) skip
+    the parse + side unpack.  Mutating callers must copy first."""
+    key = _index_key(base)
+    if key in _IDX_CACHE:
+        _IDX_CACHE.move_to_end(key)
+        return _IDX_CACHE[key]
+    idx = read_ebwt(base)
+    _IDX_CACHE[key] = idx
+    while len(_IDX_CACHE) > 4:
+        _IDX_CACHE.popitem(last=False)
+    return idx
+
+
+def adjust_ebwt_base(base: str) -> str:
+    """Locate the index like adjustEbwtBase (ebwt.h:4397): try the
+    given path, then $BOWTIE_INDEXES/<base>."""
+    if os.path.exists(base + ".1.ebwt"):
+        return base
+    env = os.environ.get("BOWTIE_INDEXES")
+    if env:
+        cand = os.path.join(env, base)
+        if os.path.exists(cand + ".1.ebwt"):
+            return cand
+    return base
+
+
+def _unported_mode(args) -> str | None:
+    """The first requested mode this port cannot run yet, or None."""
+    if args.mates1 or args.mates2 or args.tabbed or args.interleaved:
+        return "paired-end input"
+    if args.sanity:
+        return "--sanity"
+    if args.stats:
+        return "--stats"
+    if args.best:
+        return "--best"
+    if args.strata:
+        return "--strata"
+    if args.sample_mhits is not None:
+        return "-M"
+    if args.mismatches < 0:
+        return "-n"
+    if args.mismatches > 0:
+        return f"-v {args.mismatches}"
+    return None
+
+
+def main(argv=None, device=None) -> int:
+    """Run the aligner; `device` (default CUDA) is where the index lives
+    and the kernels run — the tests pass "cpu" for the plain versions."""
+    if "--version" in (argv if argv is not None else sys.argv[1:]):
+        import platform
+        print("bowtie-tpu-torch version 1.3.1-tpu-torch")
+        print("64-bit")
+        print(f"Python {platform.python_version()}")
+        return 0
+    args = build_parser().parse_args(argv)
+
+    # index via -x or positional (ebwt_search.cpp:3358-3393: the
+    # positional form is accepted with a deprecation warning; with -x
+    # the positionals shift left to [query, output])
+    if args.index_opt is not None:
+        args.hits = args.reads
+        args.reads = args.ebwt_base
+        args.ebwt_base = args.index_opt
+    else:
+        if args.ebwt_base is None:
+            print("No index, query, or output file specified!",
+                  file=sys.stderr)
+            return 1
+        print("Setting the index via positional argument will be "
+              "deprecated in a future release. Please use -x option "
+              "instead.", file=sys.stderr)
+
+    # arg validation (parseOptions, ebwt_search.cpp:614+)
+    if args.mismatches >= 0 and not 0 <= args.mismatches <= 3:
+        print("-v arg must be at least 0 and at most 3", file=sys.stderr)
+        return 1
+    if not 0 <= args.seedmms <= 3:
+        print("-n arg must be at least 0 and at most 3", file=sys.stderr)
+        return 1
+    if args.strata and not args.best:
+        print("--strata must be combined with --best", file=sys.stderr)
+        return 1
+    if args.strata and not (args.all or args.mhits is not None or
+                            args.khits > 1 or
+                            args.sample_mhits is not None):
+        print("--strata has no effect unless combined with -m, -a, or "
+              "-k N where N > 1", file=sys.stderr)
+        return 1
+    mode = _unported_mode(args)
+    if mode is not None:
+        print(f"{mode} is not yet ported to bowtie_tpu_torch",
+              file=sys.stderr)
+        return 1
+    dev = resolve_device(device)
+
+    fmt = "fastq"
+    if args.fasta:
+        fmt = "fasta"
+    if args.raw:
+        fmt = "raw"
+    if args.cmdline:
+        fmt = "cmdline"
+    cont = None
+    if args.fasta_cont:
+        k, i = args.fasta_cont.split(",")
+        fmt, cont = "fasta_cont", (int(k), int(i))
+
+    t0 = time.time()
+    args.ebwt_base = adjust_ebwt_base(args.ebwt_base)
+    idx = read_ebwt_cached(args.ebwt_base)
+    if args.offrate >= 0:
+        # re-thin the SA sample at load (Ebwt ctor offRate override,
+        # ebwt.h:438-441): keep every 2^(new-old)'th entry
+        if args.offrate < idx.off_rate:
+            print(f"Warning: -o/--offrate {args.offrate} is less than "
+                  f"the index's offrate ({idx.off_rate}); ignoring",
+                  file=sys.stderr)
+        else:
+            import copy
+            step = 1 << (args.offrate - idx.off_rate)
+            idx = copy.copy(idx)            # don't mutate the cache
+            idx.offs = idx.offs[::step].copy()
+            idx.off_rate = args.offrate
+    if args.time:
+        print(f"Time loading ebwt: {time.time()-t0:.2f}s", file=sys.stderr)
+
+    khits = args.khits
+    mhits = args.mhits if args.mhits is not None else INF
+    if args.all:
+        khits = INF
+    policy = KPolicy(khits=khits, mhits=mhits)
+    aligner = ExactAligner(from_ebwt(idx, device=dev), idx, policy,
+                           nofw=args.nofw, norc=args.norc,
+                           global_seed=args.seed)
+    return _run(args, argv, idx, aligner, fmt, cont)
+
+
+def _run(args, argv, idx, aligner, fmt, cont):
+    dumps_active = bool(args.un or args.al or args.maxfile)
+    src = ReadSource(
+        paths=None if fmt == "cmdline" else args.reads.split(","),
+        fmt=fmt, upto=args.qupto, skip=args.skip,
+        cmdline_seqs=args.reads.split(",") if fmt == "cmdline" else None,
+        cont_params=cont, trim5=args.trim5, trim3=args.trim3,
+        solexa=args.solexa_quals,
+        phred64=args.phred64_quals or args.solexa13,
+        integer_quals=args.integer_quals, keep_orig=dumps_active)
+
+    out = open(args.hits, "wb") if args.hits else sys.stdout.buffer
+    refnames = ([str(i) for i in range(idx.npat)] if args.refidx
+                else idx.refnames)
+    if args.sam:
+        # --refidx SAM keeps real names in @SQ but indices in records
+        writer = SamWriter(out, idx.refnames, idx.plen.tolist(),
+                           mapq=args.mapq, full_ref=args.fullref,
+                           no_qname_trunc=args.no_qname_trunc,
+                           sam_nohead=args.sam_nohead,
+                           sam_nosq=args.sam_nosq,
+                           cmdline=" ".join(argv or sys.argv[1:]),
+                           rgline=("\t".join(args.sam_RG)
+                                   if args.sam_RG else None),
+                           refidx=args.refidx)
+    else:
+        suppress = (set(int(x) for x in args.suppress.split(","))
+                    if args.suppress else set())
+        writer = VerboseWriter(out, refnames, off_base=args.offbase,
+                               full_ref=args.fullref, suppress=suppress,
+                               cost=args.cost, show_seed=args.showseed,
+                               partition=args.partition,
+                               global_seed=args.seed)
+
+    un_f = _DumpStream(args.un, fmt) if args.un else None
+    al_f = _DumpStream(args.al, fmt) if args.al else None
+    max_f = _DumpStream(args.maxfile, fmt) if args.maxfile else None
+    if max_f is None:
+        # maxed reads dump to --un when --max isn't given
+        # (HitSink::dumpMaxed falls through to dumpUnal, hit.h:458-460)
+        max_f = un_f
+
+    stats = AlignStats()
+    batch_size = args.reads_per_batch or args.batch_size
+    t0 = time.time()
+
+    def pipelined(batches, align):
+        """Depth-1 pipeline: batch k+1 aligns (device) while batch k's
+        results are formatted and written (host) — the batched analog
+        of the reference's overlapped worker threads."""
+        with ThreadPoolExecutor(1) as ex:
+            pending = None
+            for batch in batches:
+                fut = ex.submit(align, batch)
+                if pending is not None:
+                    yield pending[0], pending[1].result()
+                pending = (batch, fut)
+            if pending is not None:
+                yield pending[0], pending[1].result()
+
+    def emit_se(read, res):
+        stats.processed += 1
+        if res.maxed:
+            # -m exceeded: counted, but NO record is emitted
+            # (HitSink::reportMaxed is counter-only, hit.h:494-500)
+            stats.maxed += 1
+            if max_f:
+                max_f.write_se(read)
+        elif not res.hits:
+            stats.failed += 1
+            if args.sam and not args.no_unal:
+                writer.unaligned(read, nhits=0)
+            if un_f:
+                un_f.write_se(read)
+        else:
+            stats.aligned += 1
+            stats.reported += len(res.hits)
+            xms = len(res.hits)
+            for h in res.hits:
+                if args.sam:
+                    writer.hit(h, xms=xms)
+                else:
+                    writer.hit(h)
+            if al_f:
+                al_f.write_se(read)
+
+    for batch, results in pipelined(src.batches(batch_size),
+                                    aligner.align_batch):
+        for read, res in zip(batch, results):
+            emit_se(read, res)
+    return _finish(args, stats, t0, out, un_f, al_f, max_f)
+
+
+def _finish(args, stats, t0, out, un_f, al_f, max_f) -> int:
+    if args.time:
+        dt = time.time() - t0
+        print(f"Time searching: {dt:.2f}s "
+              f"({stats.processed/max(dt,1e-9):.0f} reads/s)",
+              file=sys.stderr)
+
+    # Summary prints even under --quiet: the reference's HitSink
+    # quiet_ flag (hit.h:279) is never wired to ARG_QUIET, so the
+    # actual binary always emits the end-of-run stats; --quiet
+    # only silences other informational messages.
+    # HitSink::finish (hit.h:270-346): maxed reads count toward
+    # "at least one alignment" (-M sampling is not ported)
+    aligned_disp = stats.aligned + stats.maxed
+    tot = max(1, stats.processed)
+    print(f"# reads processed: {stats.processed}", file=sys.stderr)
+    print(f"# reads with at least one alignment: {aligned_disp} "
+          f"({100.0*aligned_disp/tot:.2f}%)",
+          file=sys.stderr)
+    print(f"# reads that failed to align: {stats.failed} "
+          f"({100.0*stats.failed/tot:.2f}%)",
+          file=sys.stderr)
+    if stats.maxed:
+        print(f"# reads with alignments suppressed due to -m: "
+              f"{stats.maxed} "
+              f"({100.0*stats.maxed/tot:.2f}%)",
+              file=sys.stderr)
+    # summary wording (HitSink::finish, hit.h:321-337), single-end
+    if stats.reported == 0:
+        print("No alignments", file=sys.stderr)
+    else:
+        print(f"Reported {stats.reported} alignments", file=sys.stderr)
+    if getattr(args, "hadoopout", False):
+        # Hadoop streaming counters (hit.h:338-344)
+        print(f"reporter:counter:Bowtie,Reads with reported alignments,"
+              f"{stats.aligned}", file=sys.stderr)
+        print(f"reporter:counter:Bowtie,Reads with no alignments,"
+              f"{stats.failed}", file=sys.stderr)
+        print(f"reporter:counter:Bowtie,Reads exceeding -m limit,"
+              f"{stats.maxed}", file=sys.stderr)
+        # numReportedPaired counts individual mates (hit.h:343)
+        print(f"reporter:counter:Bowtie,Unpaired alignments reported,"
+              f"{stats.reported}", file=sys.stderr)
+        print("reporter:counter:Bowtie,Paired alignments reported,0",
+              file=sys.stderr)
+
+    for f in {id(x): x for x in (un_f, al_f, max_f) if x}.values():
+        f.close()
+    if args.hits:
+        out.close()
+    return 0
+
+
+class _DumpStream:
+    """Lazy same-format read dump (--al/--un/--max).
+
+    Mirrors HitSink's dump machinery (hit.h:385-490): the file is opened
+    on the FIRST dumped read (no file is created otherwise).  What's
+    written is the raw input record (readOrigBuf), not a re-synthesized
+    one."""
+
+    def __init__(self, base: str, fmt: str):
+        self.base = base
+        self.fmt = fmt
+        self.f = None
+
+    def _rec(self, read) -> bytes:
+        if read.orig is not None:
+            return read.orig
+        if self.fmt == "fasta":
+            return b">" + read.name + b"\n" + read.seq + b"\n"
+        return (b"@" + read.name + b"\n" + read.seq + b"\n+\n" +
+                read.qual + b"\n")
+
+    def write_se(self, read):
+        if self.f is None:
+            self.f = open(self.base, "wb")
+        self.f.write(self._rec(read))
+
+    def close(self):
+        if self.f:
+            self.f.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,169 @@
+"""Build, load and launch the hand-written CUDA kernels of csrc/.
+
+The sources compile at first use, with nvcc for sm_90a, into
+``csrc/build/libbtkernels.so`` (listed in .gitignore), and load through
+ctypes; each C entry point launches one kernel on the stream it is given
+and returns ``cudaGetLastError()``.  The wrappers in ``align/`` check
+their tensors, allocate outputs, call ``launch`` and count launches in
+``LAUNCHES``.  Nothing here runs at import time: a CPU-only install can
+import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD_DIR = os.path.join(_CSRC, "build")
+_LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
+SOURCES = ("exact.cu",)
+HEADERS = ("fm.cuh",)
+
+# kernel launches since the last reset_launches(), by wrapper
+LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
+            "resolve_rows_sa": 0, "one_row": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu into csrc/build/libbtkernels.so unless it is
+    newer than every source; returns its path.  ptxas's register and
+    spill report is kept in csrc/build/ptxas.txt."""
+    srcs = [os.path.join(_CSRC, s) for s in SOURCES + HEADERS]
+    if (not force and os.path.exists(_LIB) and os.path.getmtime(_LIB)
+            >= max(os.path.getmtime(s) for s in srcs)):
+        return _LIB
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp,
+           *[os.path.join(_CSRC, s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(_BUILD_DIR, "ptxas.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, _LIB)
+    return _LIB
+
+
+class FMView(ctypes.Structure):
+    """Mirror of `struct BtFM` in csrc/fm.cuh (passed by pointer)."""
+    _fields_ = [("bwt", ctypes.c_void_p), ("occ", ctypes.c_void_p),
+                ("ftab_hi", ctypes.c_void_p), ("ftab_lo", ctypes.c_void_p),
+                ("offs", ctypes.c_void_p), ("sa", ctypes.c_void_p),
+                ("fchr", ctypes.c_uint32 * 5), ("zoff", ctypes.c_uint32),
+                ("bwt_len", ctypes.c_uint32),
+                ("ftab_chars", ctypes.c_int32), ("off_rate", ctypes.c_int32)]
+
+
+_P = ctypes.c_void_p
+_FM = ctypes.POINTER(FMView)
+_SIGNATURES = {
+    # (fm, reads, lens, n, L, top, bot, stream)
+    "bt_exact_ranges": [_FM, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    # (fm, rows, n, off, ok, stream)
+    "bt_resolve_walk": [_FM, _P, ctypes.c_int, _P, _P, _P],
+    "bt_resolve_sa": [_FM, _P, ctypes.c_int, _P, _P, _P],
+    # (fm, reads, lens, seeds, n, L, dense, out, stream)
+    "bt_one_row": [_FM, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   _P, _P],
+}
+
+
+def lib():
+    """The kernel library, built and loaded on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            so.bt_error_string.argtypes = [ctypes.c_int]
+            so.bt_error_string.restype = ctypes.c_char_p
+            _lib = so
+    return _lib
+
+
+def fm_view(fm) -> FMView:
+    """The kernels' view of a CUDA-resident FMIndexArrays (cached on it;
+    the view borrows the arrays' device pointers)."""
+    if fm.kernel_view is None:
+        for name in ("bwt", "occ", "ftab_hi", "ftab_lo", "offs"):
+            check(getattr(fm, name), f"fm.{name}", torch.int32, None,
+                  fm.device)
+        if fm.bwt.data_ptr() % 32 or fm.occ.data_ptr() % 16:
+            raise ValueError("fm.bwt/fm.occ are not 32/16-byte aligned")
+        v = FMView()
+        v.bwt, v.occ = fm.bwt.data_ptr(), fm.occ.data_ptr()
+        v.ftab_hi, v.ftab_lo = fm.ftab_hi.data_ptr(), fm.ftab_lo.data_ptr()
+        v.offs = fm.offs.data_ptr()
+        v.sa = fm.sa.data_ptr() if fm.sa is not None else None
+        v.fchr[:] = [int(x) for x in fm.fchr.tolist()]
+        v.zoff, v.bwt_len = fm.zoff, fm.bwt_len
+        v.ftab_chars, v.off_rate = fm.ftab_chars, fm.off_rate
+        fm.kernel_view = v
+    return fm.kernel_view
+
+
+def on_cpu(fm, *tensors: torch.Tensor) -> bool:
+    """True when the index and every tensor lie on the CPU (the plain
+    version's case), False when all lie on one CUDA device (the
+    kernel's); anything else raises."""
+    devs = {fm.device} | {t.device for t in tensors}
+    if devs == {torch.device("cpu")}:
+        return True
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return False
+    raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          ndim: int | None, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{ndim} dimensions")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call C entry `entry` with `args` plus the current stream, raise
+    on a launch error, and count the launch under `name`."""
+    so = lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(so, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}: "
+                           f"{so.bt_error_string(rc).decode()}")
+    LAUNCHES[name] += 1

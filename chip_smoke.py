@@ -1,0 +1,607 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (bowtie_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing one JSON line:
+
+1. device  - the card (nvidia-smi name and power limit), torch and CUDA
+             versions, and the seconds nvcc takes to build csrc/.
+2. index   - a seeded 4,600,000 bp genome in one record (the size of
+             bowtie's bundled E. coli example index) with 64 planted
+             copies of a 2 kb segment, built with the port's builder at
+             bowtie-build's defaults (-o 5 -t 10, fw + mirror), loaded
+             onto the card with and without a dense SA.
+3. kernels - 2^20 seeded 36 bp reads (2^21 strands): K2 exact search,
+             K3 resolve (walk-left over K2's top rows, and dense SA) and
+             K4 (fused one-row path), each held equal element for element
+             to its plain PyTorch version on the card and timed with CUDA
+             events (median of 20 runs after warm-up; plain versions
+             median of 5).  K3 walk and K4 are also held to their plain
+             versions on the index with its SA sample thinned to offRate
+             13, where most walks pass MAX_WALK and end with ok=False.
+4. cli     - the main path: 200,000 such reads as FASTQ through
+             bowtie_tpu_torch.cli.align.main on the card (-v 0 -k 1
+             verbose, through K4; -v 0 -a -m 3 -S, through K2 and K3
+             walk), each with the launch counters zeroed just before and
+             read just after.  Every reported hit must equal its reference
+             substring, every planted exact read must align, and the
+             records of the first 4,000 reads must equal, byte for byte,
+             what the same CLI writes for those reads on the CPU (the
+             plain versions).  Then the same -a -m 3 alignment through the
+             library (ExactAligner) with a dense-SA index, counted on its
+             own: the only run of K3 dense, which no CLI path reaches; it
+             must report what the CLI run reported.
+
+Then the {"kernels": [...]} line (launches: the two CLI runs; K3 dense's
+library-run launches beside its 0), the nvidia-smi line, and last
+{"ok": true, "device": {...}}.  Any failure raises and the script exits
+non-zero without that last line.  It needs one CUDA device and writes
+only under .smoke/ in the checkout.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import io
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from bowtie_tpu_torch import kernels  # noqa: E402
+from bowtie_tpu_torch.align.exact import (  # noqa: E402
+    exact_ranges, exact_ranges_plain, resolve_rows, resolve_rows_plain)
+from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
+    ExactAligner, one_row, one_row_plain)
+from bowtie_tpu_torch.align.policy import INF, KPolicy  # noqa: E402
+from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
+from bowtie_tpu_torch.cli import align as cli  # noqa: E402
+from bowtie_tpu_torch.index.arrays import from_ebwt  # noqa: E402
+from bowtie_tpu_torch.index.ebwt_io import read_ebwt  # noqa: E402
+from bowtie_tpu_torch.io.readers import ReadSource  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+# H100 SXM: 132 SMs at the 1.98 GHz boost clock (Hopper architecture white
+# paper); per SM and clock, 64 results of 32-bit integer add, shift and
+# bitwise logic and 16 of population count (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
+# The least instructions of one rank Occ(c, i) (fm.cuh rank1, lf_row),
+# counted from the words the function needs, not from the kernels' masked
+# 8-word scan.  For each of the ceil((i mod 128) / 16) words that hold rows
+# of the block before i (ops.fm.words_needed, summed by the plain versions):
+# one LOP3 for the lane match ~(w ^ pattern), one shift, one LOP3 folding
+# m & (m >> 1) with the lane mask, one add, and one popc.  Per rank, 9 more
+# integer ops: 2 to split the row into block and offset, 3 for the partial
+# word's lane mask, 2 for the '$' correction, 2 adds (checkpoint, fchr).
+# A walk step (mapLF) first takes its own code from the block: 2 more.
+# Per-strand set-up (the ftab offset, the LCG draw) is left out, which only
+# lowers the bound.
+INT_OPS_PER_WORD = 4
+INT_OPS_PER_RANK = 9
+INT_OPS_PER_WALK_STEP = 2
+L2_BYTES = 50 * 2**20          # H100 L2
+SECTOR = 32
+READ_LEN = 36
+SOURCE = "bowtie_tpu_torch/csrc/exact.cu"
+NO_LIBRARY = "n/a: no single PyTorch call computes an FM backward search"
+COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
+CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ---------------------------------------------------------------- inputs
+
+def make_genome(rng, length: int, copies: int, seg_len: int):
+    """Random ACGT genome with `copies` copies of one segment, one copy
+    at a random offset in each of `copies` equal slices."""
+    g = rng.integers(0, 4, length).astype(np.uint8)
+    seg = rng.integers(0, 4, seg_len).astype(np.uint8)
+    slice_len = length // copies
+    starts = (np.arange(copies) * slice_len
+              + rng.integers(0, slice_len - seg_len, copies))
+    for s in starts:
+        g[s:s + seg_len] = seg
+    return g, starts
+
+
+KINDS = ("exact", "repeat", "mismatch", "n", "short", "random")
+KIND_P = (0.60, 0.10, 0.10, 0.05, 0.05, 0.10)
+
+
+def make_reads(rng, genome, rep_starts, seg_len: int, n: int):
+    """n reads of READ_LEN (shorter for kind "short"): codes [n, L]
+    left-aligned (pad 4), lens, kind index, genome offset, strand
+    (1 = reverse complement)."""
+    L = READ_LEN
+    kind = rng.choice(len(KINDS), size=n, p=KIND_P)
+    pos = rng.integers(0, len(genome) - L, n)
+    rep = kind == KINDS.index("repeat")
+    pos[rep] = (rep_starts[rng.integers(0, len(rep_starts), rep.sum())]
+                + rng.integers(0, seg_len - L, rep.sum()))
+    codes = genome[pos[:, None] + np.arange(L)]
+    strand = rng.integers(0, 2, n)
+    rc = strand == 1
+    codes[rc] = COMP[codes[rc, ::-1]]
+    rows = np.arange(n)
+    mm = kind == KINDS.index("mismatch")
+    col = rng.integers(0, L, n)
+    codes[rows[mm], col[mm]] = (codes[rows[mm], col[mm]]
+                                + rng.integers(1, 4, mm.sum())) % 4
+    nk = kind == KINDS.index("n")
+    codes[rows[nk], col[nk]] = 4
+    rnd = kind == KINDS.index("random")
+    codes[rnd] = rng.integers(0, 4, (rnd.sum(), L))
+    lens = np.full(n, L, dtype=np.int32)
+    sh = kind == KINDS.index("short")
+    lens[sh] = rng.integers(5, 10, sh.sum())
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+    return codes, lens, kind, pos, strand
+
+
+def strand_matrix(codes, lens):
+    """Both strands right-aligned, fw block then rc block: the layout
+    ExactAligner hands the kernels.  -> (mat [2n, L], lens [2n])."""
+    n, L = codes.shape
+    j = np.arange(L)[None, :] - (L - lens[:, None])       # source column
+    valid = j >= 0
+    jc = np.clip(j, 0, L - 1)
+    fw = np.where(valid, np.take_along_axis(codes, jc, 1), 4)
+    src_rc = np.clip(lens[:, None] - 1 - j, 0, L - 1)
+    rc = np.where(valid, COMP[np.take_along_axis(codes, src_rc, 1)], 4)
+    return (np.concatenate([fw, rc]).astype(np.uint8),
+            np.concatenate([lens, lens]).astype(np.int32))
+
+
+# ---------------------------------------------------------------- timing
+
+def time_ms(fn, device, iters: int, warmup: int = 2) -> float:
+    """Median time of fn() in ms: CUDA events on the card, the host
+    clock elsewhere.  On the card a ~0.5 ms spin kernel runs first, so
+    the host has queued fn's launches before the start event fires and
+    the events time the device work, not the Python launch path."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(1_000_000)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bounds(nbytes: int, ranks: int, walk_steps: int, words: int,
+           sectors: int) -> dict:
+    """The least time the card could take: the larger of `nbytes` (each
+    input read once, each output written once) over the HBM rate and the
+    operations of `ranks` ranks (`walk_steps` of them walk steps) that
+    popcount `words` words in all, each class over its own rate (the
+    integer and popc pipes may issue side by side, so the larger of the
+    two).  sector_ms is the other yardstick: every 32-byte sector the
+    kernel touches, re-reads included, over the HBM rate."""
+    int_ops = (INT_OPS_PER_WORD * words + INT_OPS_PER_RANK * ranks
+               + INT_OPS_PER_WALK_STEP * walk_steps)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * max(int_ops / INT32_OPS_PER_S, words / POPC_OPS_PER_S)
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms, int_ops=int_ops,
+                popc_ops=words, ranks=ranks,
+                sector_ms=1e3 * SECTOR * sectors / HBM_BYTES_PER_S)
+
+
+def max_abs_err(pairs) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in pairs)
+
+
+# ---------------------------------------------------------------- phases
+
+def phase_index(rng, work, device, genome_len, copies, seg_len):
+    genome, rep_starts = make_genome(rng, genome_len, copies, seg_len)
+    base = os.path.join(work, "genome")
+    t = time.time()
+    build_index([genome], ["synthetic_4.6M seeded"], base,
+                off_rate=5, ftab_chars=10)
+    build_s = time.time() - t
+    t = time.time()
+    idx = read_ebwt(base)
+    fm = from_ebwt(idx, device=device)
+    fm_sa = from_ebwt(idx, device=device, dense_sa=True)
+    sync(device)
+    load_s = time.time() - t
+    require(idx.length == genome_len and idx.off_rate == 5
+            and idx.ftab_chars == 10, "index header")
+    emit({"phase": "index", "genome_bp": genome_len,
+          "planted_copies": copies, "segment_bp": seg_len,
+          "build_s": build_s, "load_s": load_s,
+          "device_bytes": fm.nbytes(),
+          "device_bytes_dense_sa": fm_sa.nbytes()})
+    return genome, rep_starts, base, idx, fm, fm_sa
+
+
+def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
+                  n_reads):
+    codes, lens, _kind, _pos, _strand = make_reads(
+        rng, genome, rep_starts, seg_len, n_reads)
+    mat_np, lens_np = strand_matrix(codes, lens)
+    mat = torch.from_numpy(mat_np).to(device)
+    lens2 = torch.from_numpy(lens_np).to(device)
+    n, L = mat.shape
+    seeds = torch.from_numpy(
+        rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.int64)
+    ).to(device)
+    out = {}
+    index_rank = _nbytes(fm.bwt, fm.occ)     # what every LF step reads
+
+    # K2
+    top, bot = exact_ranges(fm, mat, lens2)
+    k2_work = torch.zeros(2, n, dtype=torch.int64, device=device)
+    ptop, pbot = exact_ranges_plain(fm, mat, lens2, k2_work)
+    err = max_abs_err([(top, ptop), (bot, pbot)])
+    require(err == 0, f"K2 disagrees with its plain version by {err}")
+    hit = bot > top
+    n_ftab = int((lens2 >= fm.ftab_chars).sum())
+    lf_steps, k2_words = (int(x) for x in k2_work.sum(1))
+    out["K2"] = dict(
+        name="K2 exact_ranges", route="cuda", source=SOURCE,
+        replaces="bowtie_tpu/align/exact.py:37",
+        ms=time_ms(lambda: exact_ranges(fm, mat, lens2), device, 20),
+        plain_ms=time_ms(lambda: exact_ranges_plain(fm, mat, lens2),
+                         device, 5),
+        **bounds(index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, mat, lens2)
+                 + 16 * n, 2 * lf_steps, 0, k2_words,
+                 2 * n_ftab + 2 * 2 * lf_steps),
+        library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
+        strands=n, strands_hit=int(hit.sum()), lf_steps_per_end=lf_steps)
+
+    # K3 over K2's top rows, walk-left and dense SA
+    rows = top[hit].contiguous()
+    m = rows.numel()
+    off, ok = resolve_rows(fm, rows)
+    walk = torch.zeros(2, m, dtype=torch.int64, device=device)
+    poff, pok = resolve_rows_plain(fm, rows, walk)
+    err = max_abs_err([(off, poff), (ok, pok)])
+    require(err == 0, f"K3 (walk) disagrees with its plain version by {err}")
+    require(bool(ok.all()), "K3 walk overflow on the smoke input")
+    walk_steps, walk_words = (int(x) for x in walk.sum(1))
+    out["K3w"] = dict(
+        name="K3 resolve_rows (walk)", route="cuda", source=SOURCE,
+        replaces="bowtie_tpu/align/exact.py:99",
+        ms=time_ms(lambda: resolve_rows(fm, rows), device, 20),
+        plain_ms=time_ms(lambda: resolve_rows_plain(fm, rows), device, 5),
+        **bounds(index_rank + _nbytes(fm.offs, rows) + 9 * m, walk_steps,
+                 walk_steps, walk_words, 2 * walk_steps + m),
+        library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
+        rows=m, walk_steps=walk_steps,
+        max_walk=int(walk[0].max()) if m else 0)
+
+    soff, sok = resolve_rows(fm_sa, rows)
+    psoff, psok = resolve_rows_plain(fm_sa, rows)
+    err = max_abs_err([(soff, psoff), (sok, psok), (soff, off)])
+    require(err == 0, f"K3 (dense SA) disagrees by {err}")
+    sa_sectors = int(torch.unique(rows >> 3).numel())   # 8 entries/sector
+    out["K3s"] = dict(
+        name="K3 resolve_rows (dense SA)", route="cuda", source=SOURCE,
+        replaces="bowtie_tpu/align/exact.py:99",
+        ms=time_ms(lambda: resolve_rows(fm_sa, rows), device, 20),
+        plain_ms=time_ms(lambda: resolve_rows_plain(fm_sa, rows), device, 5),
+        **bounds(SECTOR * sa_sectors + 8 * m + 9 * m, 0, 0, 0, m),
+        library_ms=time_ms(lambda: torch.index_select(fm_sa.sa, 0, rows),
+                           device, 20),
+        library="torch.index_select(sa, 0, rows)",
+        max_abs_err=err, match=True, rows=m)
+
+    # K4
+    res = one_row(fm, mat, lens2, seeds)
+    k4_work = torch.zeros(2, n, dtype=torch.int64, device=device)
+    pres = one_row_plain(fm, mat, lens2, seeds, k4_work)
+    err = max_abs_err([(res, pres)])
+    require(err == 0, f"K4 disagrees with its plain version by {err}")
+    k4_steps, k4_words = (int(x) for x in k4_work.sum(1))
+    k4_walk = k4_steps - lf_steps
+    out["K4"] = dict(
+        name="K4 one_row", route="cuda", source=SOURCE,
+        replaces="bowtie_tpu/align/pipeline.py:53",
+        ms=time_ms(lambda: one_row(fm, mat, lens2, seeds), device, 20),
+        plain_ms=time_ms(lambda: one_row_plain(fm, mat, lens2, seeds),
+                         device, 5),
+        **bounds(index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat,
+                                      lens2, seeds) + 24 * n,
+                 2 * lf_steps + k4_walk, k4_walk, k4_words,
+                 2 * n_ftab + 2 * 2 * lf_steps + 2 * k4_walk + n),
+        library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
+        strands=n, walk_steps=k4_walk)
+
+    # K3 walk and K4 past MAX_WALK: the same index with only every 256th
+    # SA sample (offRate 13), where most walks end with ok=False
+    thin = dataclasses.replace(fm, offs=fm.offs[::256].contiguous(),
+                               off_rate=fm.off_rate + 8, kernel_view=None)
+    sub = slice(0, 1 << 16)
+    trows = rows[sub]
+    toff, tok = resolve_rows(thin, trows)
+    ptoff, ptok = resolve_rows_plain(thin, trows)
+    tres = one_row(thin, mat[sub], lens2[sub], seeds[sub])
+    ptres = one_row_plain(thin, mat[sub], lens2[sub], seeds[sub])
+    err = max_abs_err([(toff, ptoff), (tok, ptok), (tres, ptres)])
+    require(err == 0, f"K3/K4 past MAX_WALK disagree by {err}")
+    k3_over = int((~tok).sum())
+    k4_hit = tres[0] > 0
+    k4_over = int((tres[2][k4_hit] == 0).sum())
+    require(0 < k3_over < trows.numel() and 0 < k4_over < int(k4_hit.sum()),
+            f"thinned index: {k3_over} K3 and {k4_over} K4 walks past "
+            "MAX_WALK, want some but not all")
+    out["K3w"].update(overflow_rows=trows.numel(), overflow_not_ok=k3_over)
+    out["K4"].update(overflow_strands=int(k4_hit.sum()),
+                     overflow_not_ok=k4_over)
+    emit({"phase": "kernels", "reads": n_reads, "strands": n,
+          "index_bytes": fm.nbytes(), "l2_bytes": L2_BYTES,
+          "index_fits_l2": fm.nbytes() < L2_BYTES,
+          "checks": {k: v["match"] for k, v in out.items()},
+          "ms": {k: v["ms"] for k, v in out.items()}})
+    return out
+
+
+def write_fastq(path, codes, lens):
+    with open(path, "wb") as f:
+        for i, (row, ln) in enumerate(zip(codes, lens)):
+            s = CHARS[row[:ln]].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, s, b"I" * ln))
+
+
+def revcomp(s: bytes) -> bytes:
+    return s[::-1].translate(bytes.maketrans(b"ACGTN", b"TGCAN"))
+
+
+def check_hits(hits, genome_chars, reads_by_name):
+    """Every hit (name, minus, off) must be its read (or the read's
+    reverse complement on -) at that genome offset."""
+    for name, minus, off in hits:
+        seq = reads_by_name[name]
+        want = revcomp(seq) if minus else seq
+        require(genome_chars[off:off + len(seq)] == want,
+                f"hit of {name!r} at {off} ({'-' if minus else '+'}) is "
+                "not its reference substring")
+
+
+def parse_verbose(path):
+    with open(path, "rb") as f:
+        for line in f:
+            p = line.split(b"\t")
+            yield p[0], p[1] == b"-", int(p[3])
+
+
+def parse_sam(path):
+    """-> (hits [(name, minus, off)], records, unaligned records)."""
+    hits, nrec, nun = [], 0, 0
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"@"):
+                continue
+            p = line.split(b"\t")
+            nrec += 1
+            flag = int(p[1])
+            if flag & 4:
+                nun += 1
+                continue
+            hits.append((p[0], bool(flag & 16), int(p[3]) - 1))
+    return hits, nrec, nun
+
+
+def run_cli(args, device):
+    err = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(args, device=device)
+    sync(device)
+    wall = time.time() - t
+    require(rc == 0, f"cli {args} exited {rc}: {err.getvalue()}")
+    return wall, err.getvalue()
+
+
+def counted(fn, device):
+    """fn() with the launch counters zeroed just before it; -> (fn's
+    result, the launches it made)."""
+    kernels.reset_launches()
+    res = fn()
+    sync(device)
+    return res, dict(kernels.LAUNCHES)
+
+
+def records_of(path, names):
+    """Header lines but @PG (it holds the argv), and the records of the
+    reads in `names`, in file order."""
+    with open(path, "rb") as f:
+        return [ln for ln in f if not ln.startswith(b"@PG")
+                and (ln.startswith(b"@") or ln.split(b"\t", 1)[0] in names)]
+
+
+CPU_SLICE = 4000
+
+
+def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
+              fm_sa, n_reads, gpu):
+    codes, lens, kind, _pos, _strand = make_reads(
+        rng, genome, rep_starts, seg_len, n_reads)
+    reads = os.path.join(work, "reads.fq")
+    write_fastq(reads, codes, lens)
+    head = os.path.join(work, "reads_head.fq")
+    write_fastq(head, codes[:CPU_SLICE], lens[:CPU_SLICE])
+    names = [b"r%d" % i for i in range(n_reads)]
+    head_names = set(names[:CPU_SLICE])
+    reads_by_name = {nm: CHARS[row[:ln]].tobytes()
+                     for nm, row, ln in zip(names, codes, lens)}
+    genome_chars = CHARS[genome].tobytes()
+    exact = (kind == KINDS.index("exact")) | (kind == KINDS.index("repeat"))
+    cpu = torch.device("cpu")
+
+    def same_as_cpu(args, out):
+        """The card's records of the first CPU_SLICE reads must be the
+        CPU's (plain versions) for those reads, byte for byte."""
+        cpu_out = out + ".cpu"
+        run_cli(args + ["-x", base, head, cpu_out], cpu)
+        want = records_of(cpu_out, head_names)
+        got = records_of(out, head_names)
+        require(got == want, f"cli {args}: card and CPU records of the "
+                f"first {CPU_SLICE} reads differ")
+        return len(want)
+
+    k1_args = ["-v", "0", "-k", "1"]
+    out1 = os.path.join(work, "k1.txt")
+    (wall1, err1), launches1 = counted(
+        lambda: run_cli(k1_args + ["-x", base, reads, out1], device), device)
+    require(launches1["one_row"] > 0, f"-k 1 run launched {launches1}")
+    hits1 = list(parse_verbose(out1))
+    check_hits(hits1, genome_chars, reads_by_name)
+    aligned1 = {h[0] for h in hits1}
+    missing = [nm for nm, e in zip(names, exact) if e and nm not in aligned1]
+    require(not missing, f"{len(missing)} planted exact reads did not "
+            f"align, e.g. {missing[:3]}")
+    cpu_lines1 = same_as_cpu(k1_args, out1)
+
+    a_args = ["-v", "0", "-a", "-m", "3", "-S", "--batch-size", "65536"]
+    out2 = os.path.join(work, "a_m3.sam")
+    (wall2, err2), launches2 = counted(
+        lambda: run_cli(a_args + ["-x", base, reads, out2], device), device)
+    require(launches2["exact_ranges"] > 0
+            and launches2["resolve_rows_walk"] > 0,
+            f"-a -m 3 run launched {launches2}")
+    hits2, nrec2, nun2 = parse_sam(out2)
+    check_hits(hits2, genome_chars, reads_by_name)
+    cpu_lines2 = same_as_cpu(a_args, out2)
+
+    # the same alignment through the library on the dense-SA index
+    aligner = ExactAligner(fm_sa, idx, KPolicy(khits=INF, mhits=3))
+
+    def library_run():
+        hits = []
+        for batch in ReadSource([reads]).batches(65536):
+            for read, res in zip(batch, aligner.align_batch(batch)):
+                hits.extend((read.name, not h.fw, h.toff) for h in res.hits)
+        return hits
+
+    t = time.time()
+    hits3, launches3 = counted(library_run, device)
+    wall3 = time.time() - t
+    require(launches3["resolve_rows_sa"] > 0, "dense run launched no K3 SA")
+    require(hits3 == hits2, "dense-SA alignments differ from the CLI's")
+    runs = {"cli -v 0 -k 1": launches1, "cli -v 0 -a -m 3 -S": launches2,
+            "library ExactAligner -a -m 3, dense SA": launches3}
+    emit({"phase": "cli", "reads": n_reads, "gpu": gpu,
+          "k1": {"wall_s": wall1, "reads_per_s": n_reads / wall1,
+                 "hits": len(hits1), "launches": launches1,
+                 "cpu_equal_lines": cpu_lines1,
+                 "summary": err1.strip().splitlines()},
+          "a_m3_S": {"wall_s": wall2, "reads_per_s": n_reads / wall2,
+                     "records": nrec2, "unaligned": nun2,
+                     "hits": len(hits2), "launches": launches2,
+                     "cpu_equal_lines": cpu_lines2,
+                     "summary": err2.strip().splitlines()},
+          "a_m3_dense_sa_library": {"wall_s": wall3,
+                                    "reads_per_s": n_reads / wall3,
+                                    "hits": len(hits3),
+                                    "launches": launches3},
+          "cpu_slice_reads": CPU_SLICE,
+          "planted_exact_reads": int(exact.sum())})
+    return runs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    work = os.path.join(ROOT, ".smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(args.seed)
+
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    t = time.time()
+    kernels.build(force=True)
+    build_s = time.time() - t
+    emit({"phase": "device", "gpu": gpu,
+          "torch_device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kernel_build_s": build_s})
+
+    seg_len = 2000
+    genome, rep_starts, base, idx, fm, fm_sa = phase_index(
+        rng, work, device, 4_600_000, 64, seg_len)
+    stats = phase_kernels(rng, device, genome, rep_starts, seg_len, fm,
+                          fm_sa, 1 << 20)
+    runs = phase_cli(rng, work, device, genome, rep_starts, seg_len,
+                     base, idx, fm_sa, 200_000, gpu)
+    counter = {"K2": "exact_ranges", "K3w": "resolve_rows_walk",
+               "K3s": "resolve_rows_sa", "K4": "one_row"}
+    main_path = [r for r in runs if r.startswith("cli ")]
+    rows = []
+    for key, entry in stats.items():
+        c = counter[key]
+        # launches: the main path's, the CLI runs; K3 dense runs only in
+        # the library run, and has 0 here
+        entry["launches"] = sum(runs[r][c] for r in main_path)
+        entry["launches_by_run"] = {r: n[c] for r, n in runs.items()}
+        require(key == "K3s" or entry["launches"] > 0,
+                f"{key} never ran on the main path")
+        entry["gpu"] = gpu
+        rows.append(entry)
+    emit({"kernels": rows})
+    print(gpu, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

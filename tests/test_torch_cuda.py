@@ -1,0 +1,116 @@
+"""The CUDA kernels (csrc/exact.cu) against their plain PyTorch versions,
+on the card: K2, K3 (walk and dense SA) and K4 must agree element for
+element, also on an index whose SA sample is thinned so that most walks
+pass MAX_WALK and end with ok=False, and the CLI on the card must write
+what it writes on the CPU.
+These tests need an NVIDIA GPU with nvcc and skip without one; on the
+card (where JAX, which tests/conftest.py imports, may be absent) run
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+import contextlib
+import dataclasses
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bowtie_tpu_torch import kernels
+from bowtie_tpu_torch.align import exact as tex
+from bowtie_tpu_torch.align.pipeline import one_row, one_row_plain
+from bowtie_tpu_torch.index.arrays import from_ebwt
+from bowtie_tpu_torch.index.ebwt_io import (read_bitpair_reference,
+                                            read_ebwt, unpack_reference)
+
+HERE = os.path.dirname(__file__)
+BASE = os.path.join(HERE, "golden", "small_index", "small_oracle")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode (their plain versions are tested on the CPU)")
+    kernels.build()
+    idx = read_ebwt(BASE)
+    refs = unpack_reference(*read_bitpair_reference(BASE))
+    return idx, refs
+
+
+def _reads(refs, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        r = refs[k % len(refs)]
+        ln = int(rng.integers(1, 45))
+        p = int(rng.integers(0, max(1, len(r) - ln)))
+        q = r[p:p + ln].copy()
+        if k % 4 == 1:
+            q[int(rng.integers(len(q)))] = 4
+        if k % 4 == 2:
+            q = rng.integers(0, 4, ln).astype(np.uint8)
+        out.append(np.minimum(q, 4).astype(np.uint8))
+    return out
+
+
+def thinned(fm, by=256):
+    """fm with only every `by`-th SA sample kept (offRate raised by
+    log2 `by`), so that most walks pass MAX_WALK."""
+    return dataclasses.replace(
+        fm, offs=fm.offs[::by].contiguous(),
+        off_rate=fm.off_rate + by.bit_length() - 1, kernel_view=None)
+
+
+@pytest.mark.parametrize("form", ["walk", "dense", "thin"])
+def test_kernels_match_plain(card, form):
+    idx, refs = card
+    dense = form == "dense"
+    fm = from_ebwt(idx, device="cuda", dense_sa=dense)
+    if form == "thin":
+        fm = thinned(fm)
+    mat, lens = tex.right_align(_reads(refs, 20000, int(dense)))
+    m, ln = torch.from_numpy(mat).cuda(), torch.from_numpy(lens).cuda()
+    kernels.reset_launches()
+    top, bot = tex.exact_ranges(fm, m, ln)
+    ptop, pbot = tex.exact_ranges_plain(fm, m, ln)
+    assert torch.equal(top, ptop) and torch.equal(bot, pbot)
+    rows = torch.arange(idx.bwt_len, device="cuda")
+    off, ok = tex.resolve_rows(fm, rows)
+    poff, pok = tex.resolve_rows_plain(fm, rows)
+    assert torch.equal(off, poff) and torch.equal(ok, pok)
+    assert bool(ok.all()) == (form != "thin")
+    seeds = torch.randint(0, 2**32, (len(lens),), device="cuda")
+    res = one_row(fm, m, ln, seeds)
+    assert torch.equal(res, one_row_plain(fm, m, ln, seeds))
+    if form == "thin":
+        assert 0 < int(res[2][res[0] > 0].sum()) < int((res[0] > 0).sum())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["exact_ranges"] == 1
+    assert kernels.LAUNCHES["one_row"] == 1
+    assert kernels.LAUNCHES["resolve_rows_sa" if dense
+                            else "resolve_rows_walk"] == 1
+
+
+@pytest.mark.parametrize("args", [["-v", "0"], ["-v", "0", "-a", "-S"]],
+                         ids=["k1", "a_S"])
+def test_cli_on_card_matches_cpu(card, tmp_path, args):
+    from bowtie_tpu_torch.cli import align as cli
+    idx, refs = card
+    reads = tmp_path / "r.fq"
+    reads.write_text("".join(
+        f"@r{i}\n{s}\n+\n{'I' * len(s)}\n" for i, s in enumerate(
+            "".join("ACGTN"[c] for c in q) for q in _reads(refs, 500, 5))))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"out.{dev}"
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            assert cli.main(args + [BASE, str(reads), str(out)],
+                            device=dev) == 0
+        body = [ln for ln in out.read_bytes().splitlines(keepends=True)
+                if not ln.startswith(b"@PG")]   # @PG holds the argv
+        outs.append((b"".join(body), err.getvalue()))
+    assert outs[0] == outs[1]

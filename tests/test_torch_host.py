@@ -1,0 +1,205 @@
+"""Host layer of the PyTorch port against the JAX package: the index
+reader, the per-read RNG, the index builder, the package boundary and
+the device policy of the entry points."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bowtie_tpu.index import ebwt_io as j_io
+from bowtie_tpu.utils import rng as j_rng
+from bowtie_tpu.io.readers import ReadRecord as JRead
+from bowtie_tpu_torch.index import ebwt_io as t_io
+from bowtie_tpu_torch.utils import rng as t_rng
+from bowtie_tpu_torch.io.readers import ReadRecord as TRead
+
+HERE = os.path.dirname(__file__)
+REPO = os.path.dirname(HERE)
+GOLD = os.path.join(HERE, "golden", "small_index", "small_oracle")
+GOLD_L = os.path.join(HERE, "golden", "small_index_l", "small_oracle")
+FASTA = os.path.join(HERE, "golden", "small_genome.fa")
+
+INDEXES = [GOLD, GOLD + ".rev", GOLD_L, GOLD_L + ".rev"]
+FIELDS = ["length", "line_rate", "lines_per_side", "off_rate", "ftab_chars",
+          "entire_reverse", "npat", "plen", "nfrag", "rstarts", "refnames",
+          "flags", "zoff", "fchr", "ftab", "eftab", "offs", "bwt",
+          "off_size"]
+
+
+@pytest.mark.parametrize("base", INDEXES, ids=os.path.relpath)
+def test_read_ebwt_arrays_equal(base):
+    j, t = j_io.read_ebwt(base), t_io.read_ebwt(base)
+    for f in FIELDS:
+        a, b = getattr(j, f), getattr(t, f)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        else:
+            assert a == b, f
+    for a, b in zip(j.ftab_resolved(), t.ftab_resolved()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bitpair_reference_equal():
+    j = j_io.unpack_reference(*j_io.read_bitpair_reference(GOLD))
+    t = t_io.unpack_reference(*t_io.read_bitpair_reference(GOLD))
+    assert len(j) == len(t)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(a, b)
+
+
+def _random_reads(cls, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        ln = int(rng.integers(0, 60))
+        seq = bytes(rng.choice(list(b"ACGTN"), size=ln).tolist())
+        qual = bytes(rng.integers(33, 127, size=ln).tolist())
+        out.append(cls(name=b"read%d/%d" % (i, rng.integers(1000)),
+                       seq=seq, qual=qual))
+    return out
+
+
+def test_next_u32_equal():
+    state = np.random.default_rng(5).integers(0, 2**32, size=4096,
+                                              dtype=np.uint64)
+    state = state.astype(np.uint32)
+    for _ in range(4):
+        js, jv = j_rng.next_u32(state)
+        ts, tv = t_rng.next_u32(state)
+        np.testing.assert_array_equal(js, ts)
+        np.testing.assert_array_equal(jv, tv)
+        state = js
+    jb, tb = j_rng.BtRandom(77), t_rng.BtRandom(77)
+    assert [jb.next_u32() for _ in range(50)] == \
+        [tb.next_u32() for _ in range(50)]
+
+
+@pytest.mark.parametrize("global_seed", [0, 1, 12345])
+def test_gen_rand_seed_equal(global_seed):
+    jr, tr = _random_reads(JRead, 300, 3), _random_reads(TRead, 300, 3)
+    for a, b in zip(jr, tr):
+        assert j_rng.gen_rand_seed(a.codes_fw, a.qual, a.name,
+                                   global_seed) == \
+            t_rng.gen_rand_seed(b.codes_fw, b.qual, b.name, global_seed)
+    np.testing.assert_array_equal(j_rng.fill_seed_caches(jr, global_seed),
+                                  t_rng.fill_seed_caches(tr, global_seed))
+    assert [int(r.seed(global_seed)) for r in jr] == \
+        [int(r.seed(global_seed)) for r in tr]
+
+
+EXTS = [".1.ebwt", ".2.ebwt", ".3.ebwt", ".4.ebwt",
+        ".rev.1.ebwt", ".rev.2.ebwt"]
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    from bowtie_tpu_torch.build.builder import build_from_fasta
+    base = str(tmp_path_factory.mktemp("torch_idx") / "small")
+    build_from_fasta([FASTA], base, off_rate=5, ftab_chars=7)
+    return base
+
+
+@pytest.mark.parametrize("ext", EXTS)
+def test_builder_byte_identical(built, ext):
+    with open(built + ext, "rb") as f, open(GOLD + ext, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_blockwise_build_refused(tmp_path):
+    from bowtie_tpu_torch.build.builder import build_index
+    with pytest.raises(NotImplementedError, match="blockwise"):
+        build_index([np.zeros(100, np.uint8)], ["x"], str(tmp_path / "b"),
+                    blockwise=True)
+
+
+def _port_files():
+    pkg = os.path.join(REPO, "bowtie_tpu_torch")
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bin", "bowtie-tpu-torch")
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = list(_port_files())
+    assert len(files) > 20
+    for path in files:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "bowtie_tpu"}, path
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    from bowtie_tpu_torch.cli import align as cli
+    from bowtie_tpu_torch.index.arrays import from_ebwt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    idx = t_io.read_ebwt(GOLD)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_ebwt(idx)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-v", "0", GOLD, "-c", "ACGTACGTAC"])
+    assert from_ebwt(idx, device="cpu").device.type == "cpu"
+
+
+def test_wrappers_refuse_mixed_devices():
+    from bowtie_tpu_torch.align.exact import exact_ranges, resolve_rows
+    from bowtie_tpu_torch.index.arrays import from_ebwt
+    fm = from_ebwt(t_io.read_ebwt(GOLD), device="cpu")
+    reads = torch.empty((2, 8), dtype=torch.uint8, device="meta")
+    lens = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        exact_ranges(fm, reads, lens)
+    with pytest.raises(ValueError, match="devices"):
+        resolve_rows(fm, torch.empty(2, dtype=torch.int64, device="meta"))
+
+
+def test_launcher_reports_unported_mode():
+    import subprocess
+    import sys
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bin", "bowtie-tpu-torch"),
+         "-v", "2", "-x", GOLD, "-c", "ACGTACGTAC"],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "-v 2 is not yet ported to bowtie_tpu_torch" in proc.stderr
+
+
+UNPORTED = [
+    ("-n", []),
+    ("-v 1", ["-v", "1"]),
+    ("-v 2", ["-v", "2"]),
+    ("-v 3", ["-v", "3"]),
+    ("--best", ["-v", "0", "--best"]),
+    ("-M", ["-v", "0", "-M", "1"]),
+    ("paired-end input", ["-v", "0", "-1", "a.fq", "-2", "b.fq"]),
+    ("--sanity", ["-v", "0", "--sanity"]),
+    ("--stats", ["-v", "0", "--stats"]),
+]
+
+
+@pytest.mark.parametrize("mode,args", UNPORTED, ids=[m for m, _ in UNPORTED])
+def test_unported_modes_exit_1(mode, args, capsys):
+    from bowtie_tpu_torch.cli import align as cli
+    rc = cli.main(args + [GOLD, "-c", "ACGTACGTAC"], device="cpu")
+    assert rc == 1
+    assert f"{mode} is not yet ported to bowtie_tpu_torch" in \
+        capsys.readouterr().err
