@@ -137,6 +137,7 @@ class ExactAligner:
                    and not (s == 1 and self.norc)]
         finish = self.policy.finish
         stop_after = self.policy.stop_after
+        seeds_l = seeds.tolist()
         for i, read in enumerate(reads):
             buffered: list[Hit] = []
             count = 0
@@ -154,7 +155,7 @@ class ExactAligner:
                     cost=0))
                 if stop:
                     break
-            results.append(finish(buffered, count))
+            results.append(finish(buffered, count, seeds_l[i]))
         return results
 
     def _align_batch_enum(self, reads: list) -> list[ReadResult]:
@@ -214,6 +215,7 @@ class ExactAligner:
         # Apply policy per read: fw strand first, stop rules per
         # NGoodHitSinkPerThread; fw stop skips rc (search_exact.c:17).
         results = []
+        seeds_l = seeds.tolist()
         for i, read in enumerate(reads):
             buffered: list[Hit] = []
             count = 0
@@ -237,5 +239,5 @@ class ExactAligner:
                     if stop:
                         stopped = True
                         break
-            results.append(self.policy.finish(buffered, count))
+            results.append(self.policy.finish(buffered, count, seeds_l[i]))
         return results

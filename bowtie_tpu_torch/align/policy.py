@@ -1,10 +1,13 @@
-"""Reporting policy: -k / -a / -m semantics on host.
+"""Reporting policy: -k / -a / -m / -M semantics on host.
 
 Mirrors NGoodHitSinkPerThread (hit.h:937-992) + finishRead
 (hit.h:741-787): hits stream in (fw strand first, search_exact.c order);
 counting continues past -k when -m is set; exceeding -m marks the read
 "maxed" and suppresses output.  -M sampling (hit.cpp:44-66) is not
-ported yet.
+ported yet: `finish` takes the reference's arguments (the read seed is
+what -M samples with) and its ReadResult carries `sampled` (always False
+here) and `nbuffered`, so results compare field for field with
+bowtie_tpu/align/policy.py's.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ class AlignStats:
 class ReadResult:
     hits: list            # reported hits (possibly empty)
     maxed: bool = False   # exceeded -m
-    nvalid: int = 0       # total valid hits counted
+    nvalid: int = 0       # total valid hits counted (for XM of maxed)
+    sampled: bool = False  # -M sampling applied (-M is not ported yet)
+    nbuffered: int = 0    # buffered hits at finish (xms for -M records)
 
 
 class KPolicy:
@@ -50,7 +55,11 @@ class KPolicy:
             return True, False
         return False, False
 
-    def finish(self, buffered: list, count: int) -> ReadResult:
+    def finish(self, buffered: list, count: int, seed: int) -> ReadResult:
+        """The read's result from its buffered hits, its count of valid
+        hits and its per-read seed (which only -M sampling reads)."""
         if count > self.max:
-            return ReadResult([], maxed=True, nvalid=count)
-        return ReadResult(buffered[: self.n], nvalid=count)
+            return ReadResult([], maxed=True, nvalid=count,
+                              nbuffered=len(buffered))
+        return ReadResult(buffered[: self.n], nvalid=count,
+                          nbuffered=len(buffered))

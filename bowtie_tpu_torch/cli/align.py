@@ -2,9 +2,10 @@
 
 Usage: python -m bowtie_tpu_torch.cli.align [options] <ebwt-base> <reads> [<hits>]
 
-This slice runs the exact-match mode (-v 0) with -k/-a/-m reporting on
-the CUDA kernels; every other mode exits 1 with a "not yet ported"
-message.
+This port runs the exact-match mode (-v 0) and the mismatch modes -v 1
+and -v 2 (the GreedyDFS machine, align/dfs_device.py) with -k/-a/-m
+reporting on the CUDA kernels; -n, -v 3, --best, --strata, -M, paired
+input, --sanity and --stats exit 1 with a "not yet ported" message.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
+from ..align.dfs_device import DeviceDFSAligner
 from ..align.pipeline import ExactAligner
 from ..align.policy import INF, AlignStats, KPolicy
 from ..index.arrays import from_ebwt
@@ -223,8 +225,8 @@ def _unported_mode(args) -> str | None:
         return "-M"
     if args.mismatches < 0:
         return "-n"
-    if args.mismatches > 0:
-        return f"-v {args.mismatches}"
+    if args.mismatches == 3:
+        return "-v 3"
     return None
 
 
@@ -314,9 +316,17 @@ def main(argv=None, device=None) -> int:
     if args.all:
         khits = INF
     policy = KPolicy(khits=khits, mhits=mhits)
-    aligner = ExactAligner(from_ebwt(idx, device=dev), idx, policy,
-                           nofw=args.nofw, norc=args.norc,
-                           global_seed=args.seed)
+    if args.mismatches == 0:
+        aligner = ExactAligner(from_ebwt(idx, device=dev), idx, policy,
+                               nofw=args.nofw, norc=args.norc,
+                               global_seed=args.seed)
+    else:
+        # -v 1/2 (bowtie_tpu/cli/align.py:560-577); the mirror index is
+        # read as it is, -o re-thins only the forward one, as there
+        idx_bw = read_ebwt_cached(args.ebwt_base + ".rev")
+        aligner = DeviceDFSAligner(idx, idx_bw, policy, v=args.mismatches,
+                                   nofw=args.nofw, norc=args.norc,
+                                   global_seed=args.seed, device=dev)
     return _run(args, argv, idx, aligner, fmt, cont)
 
 

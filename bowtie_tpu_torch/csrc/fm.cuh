@@ -103,6 +103,36 @@ __device__ __forceinline__ uint32_t lf(const BtFM& fm, uint32_t i,
     return fchr_get(fm, c) + rank1(fm, c, i);
 }
 
+// K5 (bowtie_tpu/align/dfs_device.py:261 _rank4): Occ(c, i) for all four
+// codes from one occ load and one block load, '$' corrected on the A count
+// (countFwSide, ebwt.h:2044-2052).  Plain version: ops/fm.py rank4_plain.
+__device__ __forceinline__ void rank4(const BtFM& fm, uint32_t i,
+                                      uint32_t out[4]) {
+    const uint32_t block = i / kOccBlock, rem = i % kOccBlock;
+    const uint4 o = __ldg(fm.occ + block);
+    uint32_t w[kWordsPerBlock];
+    block_words(fm, block, w);
+    out[0] = o.x + count_in_block(w, 0, rem) - (i > fm.zoff ? 1u : 0u);
+    out[1] = o.y + count_in_block(w, 1, rem);
+    out[2] = o.z + count_in_block(w, 2, rem);
+    out[3] = o.w + count_in_block(w, 3, rem);
+}
+
+// K5 (dfs_device.py:303 _lf4pair): the LF quartets of both ends of a range
+// (mapLFEx at top and bot, ebwt.h:2334).  Plain version: ops/fm.py
+// lf4pair_plain.
+__device__ __forceinline__ void lf4pair(const BtFM& fm, uint32_t top,
+                                        uint32_t bot, uint32_t t4[4],
+                                        uint32_t b4[4]) {
+    rank4(fm, top, t4);
+    rank4(fm, bot, b4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        t4[c] += fm.fchr[c];
+        b4[c] += fm.fchr[c];
+    }
+}
+
 // mapLF(l): LF of row i by its own char, read from the same block as the
 // rank scan (one occ row + one word block).  Undefined at zoff.
 __device__ __forceinline__ uint32_t lf_row(const BtFM& fm, uint32_t i) {

@@ -21,12 +21,13 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
-SOURCES = ("exact.cu",)
+SOURCES = ("exact.cu", "dfs.cu")
 HEADERS = ("fm.cuh",)
 
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
-            "resolve_rows_sa": 0, "one_row": 0}
+            "resolve_rows_sa": 0, "one_row": 0, "derive_rows": 0,
+            "dfs_machine": 0, "dfs_pack": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -81,6 +82,23 @@ class FMView(ctypes.Structure):
 
 
 _P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+
+
+class DfsArgs(ctypes.Structure):
+    """Mirror of `struct DfsArgs` in csrc/dfs.cu (passed by pointer)."""
+    _fields_ = [("fw", FMView), ("bw", FMView), ("rstarts", _P),
+                ("nfrag", _I32), ("length", ctypes.c_uint32),
+                ("dense", _I32), ("scal", _P), ("qqp", _P), ("seeds", _P),
+                ("count0", _P), ("B", _I32), ("J", _I32), ("L", _I32),
+                ("n_k", _I32), ("m_max", _I32),
+                ("max_transitions", ctypes.c_int64), ("pairs", _P),
+                ("elims", _P)] + [(k, _P) for k in (
+                    "result", "overflow", "count", "nhits", "hits", "npart",
+                    "part_n", "part_job", "part_pos", "part_refc", "rng",
+                    "mode", "steps")]
+
+
 _FM = ctypes.POINTER(FMView)
 _SIGNATURES = {
     # (fm, reads, lens, n, L, top, bot, stream)
@@ -91,6 +109,13 @@ _SIGNATURES = {
     # (fm, reads, lens, seeds, n, L, dense, out, stream)
     "bt_one_row": [_FM, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    _P, _P],
+    # (args, stream)
+    "bt_dfs_machine": [ctypes.POINTER(DfsArgs), _P],
+    # (scal, codes, qual, plen, B, J, L, fc, out, qqp, stream)
+    "bt_derive_rows": [_P, _P, _P, _P] + [ctypes.c_int] * 4 + [_P, _P, _P],
+    # (hits, nh_eff, hoff, part_n, part_job, part_pos, part_refc, npart,
+    #  poff, B, hout, pout, stream)
+    "bt_dfs_pack": [_P] * 9 + [ctypes.c_int, _P, _P, _P],
 }
 
 
@@ -135,7 +160,12 @@ def on_cpu(fm, *tensors: torch.Tensor) -> bool:
     """True when the index and every tensor lie on the CPU (the plain
     version's case), False when all lie on one CUDA device (the
     kernel's); anything else raises."""
-    devs = {fm.device} | {t.device for t in tensors}
+    return all_on_cpu(*tensors, device=fm.device)
+
+
+def all_on_cpu(*tensors: torch.Tensor, device=None) -> bool:
+    """on_cpu for tensors (and `device`, if given) without an index."""
+    devs = {t.device for t in tensors} | ({device} if device else set())
     if devs == {torch.device("cpu")}:
         return True
     if len(devs) == 1 and next(iter(devs)).type == "cuda":

@@ -95,11 +95,14 @@ def rank4_plain(fm: FMIndexArrays, i) -> torch.Tensor:
     block = i // OCC_BLOCK
     rem = i - block * OCC_BLOCK
     base = u32(fm.occ[block])
-    words = _block_words(fm, block)
-    nl = _nlanes(rem)
-    cnts = torch.stack(
-        [_count_matches_in_word(words, torch.tensor(cc, device=i.device),
-                                nl).sum(-1) for cc in range(4)], dim=-1)
+    words = _block_words(fm, block)[..., None, :]            # [..., 1, 8]
+    pat = torch.tensor(_CHAR_PATTERNS, dtype=torch.int64,
+                       device=i.device)[:, None]              # [4, 1]
+    m = ~(words ^ pat) & U32
+    hits = m & (m >> 1) & _LANE_EVEN                          # [..., 4, 8]
+    nl = _nlanes(rem)[..., None, :]
+    keep = torch.bitwise_left_shift(torch.ones_like(nl), 2 * nl) - 1
+    cnts = _popcount32(hits & keep).sum(-1)
     corr = torch.zeros_like(base)
     corr[..., 0] = (i > fm.zoff).long()
     return base + cnts - corr
@@ -114,6 +117,18 @@ def lf_plain(fm: FMIndexArrays, i, c) -> torch.Tensor:
 def lf4_plain(fm: FMIndexArrays, i) -> torch.Tensor:
     """All-4-chars LF (mapLFEx): [..., 4] next rows."""
     return fm.fchr[:4] + rank4_plain(fm, i)
+
+
+def lf4pair_plain(fm: FMIndexArrays, top, bot
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quartets of both range ends (mapLFEx at top and at bot,
+    ebwt.h:2334): ([..., 4], [..., 4]), as bowtie_tpu/align/
+    dfs_device.py:303 _lf4pair computes them through :261 _rank4 (one
+    checkpoint row and one word block per end, the '$' correction on
+    the A count).  The DFS machine's kernel inlines it as fm.cuh
+    lf4pair."""
+    r = lf4_plain(fm, torch.stack([_rows(fm, top), _rows(fm, bot)]))
+    return r[0], r[1]
 
 
 def bwt_char_plain(fm: FMIndexArrays, i) -> torch.Tensor:

@@ -32,17 +32,39 @@ Phases, each printing one JSON line:
              library (ExactAligner) with a dense-SA index, counted on its
              own: the only run of K3 dense, which no CLI path reaches; it
              must report what the CLI run reported.
+5. dfs     - the DFS machine (-v 1/2): 16,384 such reads with a second
+             mismatch in every fourth.  K6 (derive_rows), K7 (dfs_machine,
+             K5 inlined) and K8 (dfs_pack) each held to its plain version
+             on the card, exactly, for -v 1 -k 1, -v 2 -a -m 3 and -v 2 -a
+             (plain -a: reads of the 64-copy repeat overflow the 8 hit
+             slots) on the dense pair, and for -v 1 -k 1 on 4,096 reads
+             with the pair thinned to offRate 13 (walk-left), where K7 is
+             held to the plain version on the lanes that finishes within
+             4,000 iterations, and on the lanes past that budget that K7
+             finishes, to the host oracle (OracleAligner): the
+             step-budget rule of align/dfs_device.py.  Every hit must
+             equal its reference substring except at its reported
+             mismatches.  The -v 2 -a -m 3 tables are timed; K7's and
+             K8's bytes are those the run reads and writes, counted by
+             the plain versions.
+6. cli_v   - 200,000 such reads through the CLI on the card, -v 1 -k 1
+             (verbose) and -v 2 -a -m 3 -S, each counted from zero and
+             traced by torch.profiler for the device's busy share, with
+             the lanes re-run on the host oracle counted; the records of
+             the first 2,000 reads must equal the CPU CLI's byte for byte,
+             and the library aligner's results on them the host oracle's.
 
-Then the {"kernels": [...]} line (launches: the two CLI runs; K3 dense's
-library-run launches beside its 0), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failure raises and the script exits
-non-zero without that last line.  It needs one CUDA device and writes
-only under .smoke/ in the checkout.
+Then the {"kernels": [...]} line (launches: the four CLI runs; K3 dense's
+library-run launches beside its 0), the script's total seconds, the
+nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
+raises and the script exits non-zero without that last line.  It needs
+one CUDA device and writes only under .smoke/ in the checkout.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -60,6 +82,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from bowtie_tpu_torch import kernels  # noqa: E402
+from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
+from bowtie_tpu_torch.align.dfs_jobs import build_v_jobs_vec  # noqa: E402
+from bowtie_tpu_torch.align.drivers import OracleAligner  # noqa: E402
+from bowtie_tpu_torch.align.golden import GoldenFM  # noqa: E402
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
     exact_ranges, exact_ranges_plain, resolve_rows, resolve_rows_plain)
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
@@ -70,6 +96,7 @@ from bowtie_tpu_torch.cli import align as cli  # noqa: E402
 from bowtie_tpu_torch.index.arrays import from_ebwt  # noqa: E402
 from bowtie_tpu_torch.index.ebwt_io import read_ebwt  # noqa: E402
 from bowtie_tpu_torch.io.readers import ReadSource  # noqa: E402
+from bowtie_tpu_torch.utils.rng import fill_seed_caches  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM: 132 SMs at the 1.98 GHz boost clock (Hopper architecture white
@@ -96,7 +123,11 @@ L2_BYTES = 50 * 2**20          # H100 L2
 SECTOR = 32
 READ_LEN = 36
 SOURCE = "bowtie_tpu_torch/csrc/exact.cu"
+DFS_SOURCE = "bowtie_tpu_torch/csrc/dfs.cu"
 NO_LIBRARY = "n/a: no single PyTorch call computes an FM backward search"
+NO_LIBRARY_K6 = ("n/a: no single PyTorch call derives the by-depth rows "
+                 "and N gates")
+NO_LIBRARY_K7 = "n/a: no single PyTorch call runs a backtracking search"
 COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -385,6 +416,246 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
     return out
 
 
+DFS_READS = 16384
+DFS_L = 40                     # the row width of 36 bp reads (_len_bucket)
+THIN_READS = 4096
+THIN_STEPS = 4000
+
+
+def time_once(fn, device):
+    """(fn(), its ms): CUDA events around one call behind a spin kernel
+    (for the plain versions, whose one run takes seconds)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
+    a.record()
+    res = fn()
+    b.record()
+    b.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def thinned_index(idx, by=256):
+    """idx with only every `by`-th SA sample kept (offRate + log2 by)."""
+    t = copy.copy(idx)
+    t.offs = idx.offs[::by].copy()
+    t.off_rate = idx.off_rate + by.bit_length() - 1
+    return t
+
+
+def mm_reads(rng, genome, rep_starts, seg_len, n, path):
+    """make_reads' mix with a second mismatch in every fourth read (0, 1
+    and 2 mismatches, Ns, repeats), written as FASTQ and read back."""
+    codes, lens, *_ = make_reads(rng, genome, rep_starts, seg_len, n)
+    rows = np.arange(0, n, 4)
+    col = rng.integers(0, READ_LEN, len(rows))
+    c = codes[rows, col]
+    codes[rows, col] = np.where(c < 4, (c + 1) % 4, c)
+    write_fastq(path, codes, lens)
+    return list(ReadSource([path]).records())
+
+
+def check_mm_hits(hits, genome_chars):
+    """Every hit equals its reference substring (the read, or its reverse
+    complement on -), except at exactly the reported mismatch positions,
+    where the reported reference characters stand."""
+    for h in hits:
+        n = len(h.read.seq)
+        aligned = h.read.seq if h.fw else revcomp(h.read.seq)
+        ref = genome_chars[h.toff:h.toff + n]
+        mm = {(p if h.fw else n - 1 - p): bytes([c]).upper()
+              for p, c in h.mms}
+        want = bytes(b"".join(mm.get(i, aligned[i:i + 1])
+                              for i in range(n)))
+        require(ref == want and all(aligned[i:i + 1] != r
+                                    for i, r in mm.items()),
+                f"hit of {h.read.name!r} at {h.toff} "
+                f"({'+' if h.fw else '-'}, mms {h.mms}) does not match "
+                "the reference")
+
+
+def k7_bytes(work, qqp, seeds, c0, out) -> int:
+    """What the machine must read and write: the distinct index items
+    its plain version counted (a 16-byte occ checkpoint and a 32-byte
+    bwt block per 128 rows, 4-byte SA or sampled-SA entries, an 8-byte
+    ftab_hi/ftab_lo pair per ftab offset), the job field rows it loaded
+    and the by-depth rows it read, the seeds and counts, and every
+    output as the kernel writes it (int32)."""
+    return (16 * work["occ_entries"] + 32 * work["bwt_blocks"]
+            + 4 * work["sa_entries"] + 8 * work["ftab_entries"]
+            + 4 * dfs.NJF * work["job_fields"]
+            + qqp.shape[2] * work["job_rows"] + _nbytes(seeds, c0)
+            + 4 * sum(out[k].numel() for k in dfs.OUT_KEYS))
+
+
+def k8_bytes(out, nh_eff) -> int:
+    """What the packing must read and write: each counted hit row
+    (HIT_W words) and partial row (PART_W words) once in and once out,
+    and per lane nhits, overflow (1 byte) and npart in, nh_eff out."""
+    rows = (int(nh_eff.sum()) * dfs.HIT_W
+            + int(out["npart"].sum()) * dfs.PART_W)
+    return 2 * 4 * rows + (4 + 1 + 4 + 4) * nh_eff.numel()
+
+
+def check_with_oracle(reads, lanes, bounds_l, mk, out, seeds, oracle,
+                      policy):
+    """The kernel's result on each of `lanes`, finished by the policy as
+    the aligner finishes it, must be the host oracle's for that read."""
+    count, seed = out["count"].tolist(), seeds.tolist()
+    for b in lanes:
+        got = policy.finish([mk(reads[b], j) for j in
+                             range(bounds_l[b], bounds_l[b + 1])],
+                            count[b], seed[b])
+        require(result_key(got) == result_key(oracle.align_read(reads[b])),
+                f"lane {b} ({reads[b].name!r}): the kernel's result "
+                "differs from the host oracle's")
+
+
+def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
+             genome_chars, timed, golden):
+    """K6, K7 and K8 on one job table, each held to its plain version
+    on the card; K7 lane for lane wherever the plain version finished
+    within max_steps, and on the lanes past that budget that it finished
+    itself to the host oracle over `golden` (the budget rule,
+    align/dfs_device.py)."""
+    jobs, J = build_v_jobs_vec(reads, v, False, False, DFS_L)
+    fc = pair.ftab_chars
+    B = len(reads)
+    base = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
+        np.stack([jobs[f] for f in dfs.JOB_FIELDS], -1).astype(np.int32),
+        jobs["base_codes"], jobs["base_qual"], jobs["base_plen"])]
+    scal, qqp = dfs.derive_rows(*base, fc)
+    (pscal, pqqp), k6_plain_ms = time_once(
+        lambda: dfs.derive_rows_plain(*base, fc), device)
+    err6 = max_abs_err([(scal, pscal), (qqp, pqqp)])
+    require(err6 == 0, f"{name}: K6 disagrees with its plain version")
+    jd = {"scal": scal, "qqp": qqp}
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).to(device)
+    c0 = torch.zeros(B, dtype=torch.int32, device=device)
+    kw = dict(n_k=n_k, m_max=m_max, max_steps=max_steps)
+    out, transitions = dfs.run_machine(pair, jd, seeds, c0, **kw)
+    (pout, iters), k7_plain_ms = time_once(
+        lambda: dfs.run_machine_plain(pair, jd, seeds, c0, **kw), device)
+    done = pout["mode"] == dfs.M_DONE
+    err7 = max_abs_err([(a[done], pout[k][done]) for k, a in out.items()
+                        if k in dfs.OUT_KEYS])
+    require(err7 == 0, f"{name}: K7 disagrees with its plain version on "
+            "lanes the plain version finished")
+    hits, parts, nh_eff = dfs.pack_hits(out)
+    ph, pp, pn = dfs.pack_hits_plain(out)
+    err8 = max_abs_err([(hits, ph), (parts, pp), (nh_eff, pn)])
+    require(err8 == 0, f"{name}: K8 disagrees with its plain version")
+    bounds_l, mk = dfs.decode_hit_cols(hits.cpu().numpy(),
+                                       nh_eff.cpu().numpy())
+    decoded = [mk(reads[b], j) for b in range(B)
+               for j in range(bounds_l[b], bounds_l[b + 1])]
+    check_mm_hits(decoded, genome_chars)
+    past = (~done & (out["mode"] == dfs.M_DONE) & ~out["overflow"])
+    past = past.nonzero()[:, 0].tolist()
+    t = time.time()
+    policy = KPolicy(khits=INF if n_k == dfs.INF32 else n_k,
+                     mhits=INF if m_max == dfs.INF32 else m_max)
+    check_with_oracle(reads, past, bounds_l, mk, out, seeds,
+                      OracleAligner(*golden, policy, v=v), policy)
+    row = dict(reads=B, jobs=J, n_k=n_k, m_max=m_max, dense=pair.dense,
+               off_rate=pair.fw.off_rate, max_steps=max_steps,
+               plain_iterations=int(iters),
+               kernel_max_transitions=int(transitions),
+               budget_lanes=int((~done).sum()),
+               kernel_budget_lanes=int((out["mode"] != dfs.M_DONE).sum()),
+               overflow_lanes=int(out["overflow"].sum()),
+               oracle_checked_lanes=len(past), oracle_s=time.time() - t,
+               hits=len(decoded),
+               hits_with_mismatches=sum(1 for h in decoded if h.mms),
+               k6_plain_ms=k6_plain_ms, k7_plain_ms=k7_plain_ms,
+               max_abs_err=max(err6, err7, err8))
+    if not timed:
+        return row, None
+    # the work the bounds price, counted by a second plain run (the
+    # count's own cost is kept out of k7_plain_ms)
+    work = {}
+    dfs.run_machine_plain(pair, jd, seeds, c0, work=work, **kw)
+    row["work"] = work
+    nbytes6 = _nbytes(*base, scal, qqp)
+    nbytes7 = k7_bytes(work, qqp, seeds, c0, out)
+    nbytes8 = k8_bytes(out, nh_eff)
+    slot = torch.arange(dfs.H_MAX, device=device)
+    hits3 = out["hits"].view(B, dfs.H_MAX, dfs.HIT_W)
+    stats = {
+        "K6": dict(
+            name="K6 derive_rows", route="cuda", source=DFS_SOURCE,
+            replaces="bowtie_tpu/align/dfs_device.py:496",
+            ms=time_ms(lambda: dfs.derive_rows(*base, fc), device, 20),
+            plain_ms=k6_plain_ms,
+            **bounds(nbytes6, 0, 0, 0, nbytes6 // SECTOR),
+            library_ms=None, library=NO_LIBRARY_K6, max_abs_err=err6,
+            rows=B * J),
+        "K7": dict(
+            name="K7 dfs_machine (K5 rank4/lf4pair inlined)", route="cuda",
+            source=DFS_SOURCE,
+            replaces="bowtie_tpu/align/dfs_device.py:1484 (K5: :261, :303)",
+            ms=time_ms(lambda: dfs.run_machine(pair, jd, seeds, c0, **kw),
+                       device, 10),
+            plain_ms=k7_plain_ms,
+            **bounds(nbytes7, work["rank_codes"], work["walk_steps"],
+                     work["word_codes"],
+                     2 * work["rank_ends"] + 2 * work["walk_steps"]
+                     + work["sa_loads"]),
+            library_ms=None, library=NO_LIBRARY_K7, max_abs_err=err7,
+            lanes=B, rank_ends=work["rank_ends"],
+            sa_loads=work["sa_loads"], bytes=nbytes7),
+        "K8": dict(
+            name="K8 dfs_pack", route="cuda", source=DFS_SOURCE,
+            replaces="bowtie_tpu/align/dfs_device.py:1953",
+            ms=time_ms(lambda: dfs.pack_hits(out), device, 20),
+            plain_ms=time_once(lambda: dfs.pack_hits_plain(out),
+                               device)[1],
+            **bounds(nbytes8, 0, 0, 0, -(-nbytes8 // SECTOR)),
+            library_ms=time_ms(lambda: hits3[slot < nh_eff[:, None]],
+                               device, 20),
+            library="hits[slot < nhits] (boolean index)",
+            max_abs_err=err8, rows=int(hits.shape[0]), bytes=nbytes8),
+    }
+    return row, stats
+
+
+def phase_dfs(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
+              golden):
+    """The DFS machine's kernels against their plain versions on the
+    card: -v 1 -k 1, -v 2 -a -m 3 and -v 2 -a on the dense pair, and
+    -v 1 -k 1 on the pair thinned to offRate 13 (walk-left)."""
+    genome_chars = CHARS[genome].tobytes()
+    reads = mm_reads(rng, genome, rep_starts, seg_len, DFS_READS,
+                     os.path.join(work, "dfs.fq"))
+    dense = dfs.build_fmpair(idx, idx_bw, device, dense_sa=True)
+    thin = dfs.build_fmpair(thinned_index(idx), thinned_index(idx_bw),
+                            device, dense_sa=False)
+    cases, stats = {}, None
+    for name, pair, rds, v, n_k, m_max, steps, timed in (
+            ("v1_k1_dense", dense, reads, 1, 1, dfs.INF32, 20000, False),
+            ("v2_a_m3_dense", dense, reads, 2, dfs.INF32, 3, 20000, True),
+            ("v2_a_dense", dense, reads, 2, dfs.INF32, dfs.INF32, 20000,
+             False),
+            ("v1_k1_offrate13_walk", thin, reads[:THIN_READS], 1, 1,
+             dfs.INF32, THIN_STEPS, False)):
+        t = time.time()
+        cases[name], st = dfs_case(name, pair, rds, v, n_k, m_max, steps,
+                                   device, genome_chars, timed, golden)
+        cases[name]["wall_s"] = time.time() - t
+        stats = st or stats
+    require(cases["v2_a_dense"]["overflow_lanes"] > 0,
+            "plain -a made no lane overflow H_MAX")
+    walk = cases["v1_k1_offrate13_walk"]
+    require(0 < walk["budget_lanes"] < THIN_READS
+            and walk["oracle_checked_lanes"] > 0,
+            "offRate 13: want some lanes past the plain budget, not all, "
+            "and some of them finished by K7")
+    emit({"phase": "dfs", "cases": cases,
+          "ms": {k: v["ms"] for k, v in stats.items()}})
+    return stats
+
+
 def write_fastq(path, codes, lens):
     with open(path, "wb") as f:
         for i, (row, ln) in enumerate(zip(codes, lens)):
@@ -549,6 +820,79 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
     return runs
 
 
+V_SLICE = 2000
+
+
+def profiled(fn):
+    """(fn(), device busy seconds): fn under torch.profiler, busy being
+    the sum of device time over all kernels and copies."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = fn()
+    return res, sum(e.self_device_time_total
+                    for e in prof.key_averages()) / 1e6
+
+
+def result_key(r):
+    return ([(h.fw, h.tidx, h.toff, h.oms, h.stratum, h.cost,
+              tuple(h.mms)) for h in r.hits],
+            r.maxed, r.nvalid, r.sampled, r.nbuffered)
+
+
+def phase_cli_v(rng, work, device, genome, rep_starts, seg_len, base, idx,
+                idx_bw, golden, n_reads, gpu):
+    """-v 1 -k 1 (verbose) and -v 2 -a -m 3 -S through the CLI on the
+    card, each counted from zero and traced for the device's busy time;
+    the records of the first V_SLICE reads must equal the CPU CLI's, and
+    the library aligner's results on them the host oracle's."""
+    reads = os.path.join(work, "v_reads.fq")
+    mm_reads(rng, genome, rep_starts, seg_len, n_reads, reads)
+    head = os.path.join(work, "v_head.fq")
+    with open(reads, "rb") as f, open(head, "wb") as g:
+        g.writelines(f.readlines()[:4 * V_SLICE])
+    head_reads = list(ReadSource([head]).records())
+    names = {r.name for r in head_reads}
+    runs, rows = {}, {}
+    for tag, args, v, policy in (
+            ("-v 1 -k 1", ["-v", "1", "-k", "1"], 1, KPolicy(khits=1)),
+            ("-v 2 -a -m 3 -S", ["-v", "2", "-a", "-m", "3", "-S"], 2,
+             KPolicy(khits=INF, mhits=3))):
+        out = os.path.join(work, f"v{v}.out")
+        dfs.FALLBACKS["lanes"] = 0
+        ((wall, err), busy), launches = counted(lambda: profiled(
+            lambda: run_cli(args + ["-x", base, reads, out], device)),
+            device)
+        fallbacks = dfs.FALLBACKS["lanes"]
+        require(all(launches[k] > 0 for k in ("derive_rows", "dfs_machine",
+                                               "dfs_pack")),
+                f"cli {tag} launched {launches}")
+        cpu_out = out + ".cpu"
+        t = time.time()
+        run_cli(args + ["-x", base, head, cpu_out], torch.device("cpu"))
+        cpu_s = time.time() - t
+        want = records_of(cpu_out, names)
+        require(records_of(out, names) == want, f"cli {tag}: card and CPU "
+                f"records of the first {V_SLICE} reads differ")
+        lib = dfs.DeviceDFSAligner(idx, idx_bw, policy, v=v, device=device)
+        got = [result_key(r) for r in lib.align_batch(head_reads)]
+        t = time.time()
+        ora = OracleAligner(*golden, policy, v=v)
+        require(got == [result_key(r) for r in ora.align_batch(head_reads)],
+                f"{tag}: the card's results on the first {V_SLICE} reads "
+                "differ from the host oracle's")
+        rows[tag] = {"wall_s": wall, "reads_per_s": n_reads / wall,
+                     "device_busy_s": busy, "device_busy_share": busy / wall,
+                     "launches": launches, "fallbacks": fallbacks,
+                     "cpu_equal_lines": len(want), "cpu_slice_s": cpu_s,
+                     "oracle_s": time.time() - t,
+                     "summary": err.strip().splitlines()}
+        runs["cli " + tag] = launches
+    emit({"phase": "cli_v", "reads": n_reads, "gpu": gpu,
+          "slice_reads": V_SLICE, "runs": rows})
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -556,6 +900,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t0 = time.time()
     device = torch.device("cuda")
     work = os.path.join(ROOT, ".smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -579,10 +924,17 @@ def main() -> int:
         rng, work, device, 4_600_000, 64, seg_len)
     stats = phase_kernels(rng, device, genome, rep_starts, seg_len, fm,
                           fm_sa, 1 << 20)
+    idx_bw = read_ebwt(base + ".rev")
+    golden = (GoldenFM(idx), GoldenFM(idx_bw))      # the host oracle's
+    stats.update(phase_dfs(rng, work, device, genome, rep_starts, seg_len,
+                           idx, idx_bw, golden))
     runs = phase_cli(rng, work, device, genome, rep_starts, seg_len,
                      base, idx, fm_sa, 200_000, gpu)
+    runs.update(phase_cli_v(rng, work, device, genome, rep_starts, seg_len,
+                            base, idx, idx_bw, golden, 200_000, gpu))
     counter = {"K2": "exact_ranges", "K3w": "resolve_rows_walk",
-               "K3s": "resolve_rows_sa", "K4": "one_row"}
+               "K3s": "resolve_rows_sa", "K4": "one_row",
+               "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
     for key, entry in stats.items():
@@ -596,6 +948,7 @@ def main() -> int:
         entry["gpu"] = gpu
         rows.append(entry)
     emit({"kernels": rows})
+    emit({"total_s": time.time() - t0})
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of the port's -v 0 CLI goes, on one CUDA device.
+"""Where the time of the port's CLI goes, on one CUDA device.
 
     python3 scripts/profile_torch_cli.py [--seed N] [--reads 200000]
 
 Builds chip_smoke.py's seeded 4.6 Mbp genome index and reads, then runs
 bowtie_tpu_torch.cli.align.main four times per configuration (-v 0 -k 1,
-and -v 0 -a -m 3 -S): a warm-up, a timed run (wall s, reads/s), a run
-under cProfile for the host breakdown (the top functions by own time)
-and a run under torch.profiler for the device's busy time (the sum of
-kernel and copy time on the card over that run's wall time).  Prints one
-JSON line per configuration, then the cProfile tables.
+-v 0 -a -m 3 -S, -v 1 -k 1, -v 2 -a -m 3 -S): a warm-up, a timed run
+(wall s, reads/s, lanes re-run on the host oracle), a run under cProfile
+for the host breakdown (the top functions by own time, and the time
+inside the host oracle's align_read) and a run under torch.profiler for
+the device's busy time (the sum of kernel and copy time on the card over
+that run's wall time) and its split by kernel.  Prints one JSON line per
+configuration, then the cProfile tables.
 """
 from __future__ import annotations
 
@@ -31,12 +33,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
 from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
 from bowtie_tpu_torch.cli import align as cli  # noqa: E402
 
 CONFIGS = {"k1": ["-v", "0", "-k", "1"],
            "a_m3_S": ["-v", "0", "-a", "-m", "3", "-S",
-                      "--batch-size", "65536"]}
+                      "--batch-size", "65536"],
+           "v1_k1": ["-v", "1", "-k", "1"],
+           "v2_a_m3_S": ["-v", "2", "-a", "-m", "3", "-S"]}
 
 
 def run(args) -> float:
@@ -70,12 +75,19 @@ def main() -> int:
     codes, lens, *_ = cs.make_reads(rng, genome, rep, 2000, args.reads)
     reads = os.path.join(work, "reads.fq")
     cs.write_fastq(reads, codes, lens)
+    # the -v modes read chip_smoke's cli_v mix (a second mismatch in
+    # every fourth read)
+    mm_reads = os.path.join(work, "mm_reads.fq")
+    cs.mm_reads(rng, genome, rep, 2000, args.reads, mm_reads)
 
     tables = []
     for name, flags in CONFIGS.items():
-        argv = flags + ["-x", base, reads, os.path.join(work, name + ".out")]
+        src = reads if flags[1] == "0" else mm_reads
+        argv = flags + ["-x", base, src, os.path.join(work, name + ".out")]
         run(argv)                                    # warm: build, caches
+        dfs.FALLBACKS["lanes"] = 0
         wall = run(argv)
+        fallbacks = dfs.FALLBACKS["lanes"]
         prof = cProfile.Profile()
         prof.enable()
         prof_wall = run(argv)
@@ -87,15 +99,24 @@ def main() -> int:
         top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:8]
         host_top = [{"fn": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}",
                      "tottime_s": v[2]} for k, v in top]
+        oracle_s = sum(v[3] for k, v in st.stats.items()
+                       if k[0].endswith("drivers.py")
+                       and k[2] == "align_read")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as tp:
             traced_wall = run(argv)
-        device_us = sum(e.self_device_time_total
-                        for e in tp.key_averages())
+        events = tp.key_averages()
+        device_us = sum(e.self_device_time_total for e in events)
+        by_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
+                            for e in events if e.self_device_time_total),
+                           key=lambda kv: -kv[1])[:8]
         print(json.dumps({
             "config": name, "gpu": gpu, "reads": args.reads,
             "wall_s": wall, "reads_per_s": args.reads / wall,
+            "oracle_fallback_lanes": fallbacks,
+            "cprofile_oracle_s": oracle_s,
+            "device_s_by_kernel": dict(by_kernel),
             "cprofile_wall_s": prof_wall, "traced_wall_s": traced_wall,
             "device_busy_s": device_us / 1e6,
             "device_busy_share": device_us / 1e6 / traced_wall,

@@ -1,6 +1,7 @@
-"""CLI parity: the PyTorch port's -v 0 aligner (on the CPU) against
-bowtie_tpu.cli.align.main, byte for byte — hits file and stderr summary —
-on an index built in tmp_path from a seeded genome with planted repeats."""
+"""CLI parity: the PyTorch port's -v 0, -v 1 and -v 2 aligners (on the
+CPU) against bowtie_tpu.cli.align.main, byte for byte — hits file and
+stderr summary — on an index built in tmp_path from a seeded genome with
+planted repeats."""
 import contextlib
 import io
 
@@ -30,6 +31,20 @@ CASES = [
     ("fullref_S", ["-v", "0", "--fullref", "-S", "--sam-nohead"]),
     ("offrate", ["-v", "0", "-o", "7", "-a"]),
     ("phred64", ["-v", "0", "--phred64-quals", "--hadoopout"]),
+]
+
+# -v 1 / -v 2: the DFS machine (align/dfs_device.py) behind the exact gate
+V_CASES = [
+    ("v1_k1", ["-v", "1"]),
+    ("v1_k3", ["-v", "1", "-k", "3"]),
+    ("v2_a_m2", ["-v", "2", "-a", "-m", "2", "-u", "200"]),
+    ("v2_S", ["-v", "2", "-S", "-s", "150", "-u", "200"]),
+    ("v1_nofw_k2", ["-v", "1", "--nofw", "-k", "2"]),
+    ("v2_norc", ["-v", "2", "--norc", "-u", "200"]),
+    ("v2_seed_k2", ["-v", "2", "--seed", "5", "-k", "2", "-s", "200"]),
+    ("v1_trim_S_a_m3", ["-v", "1", "-5", "2", "-3", "1", "-S", "-a", "-m",
+                        "3", "--batch-size", "150"]),
+    ("v1_offrate_a", ["-v", "1", "-o", "7", "-a"]),
 ]
 
 # (name, flags, reads file made by the fixture)
@@ -103,6 +118,18 @@ def test_cli_parity(data, name, args):
     assert len(want[1]) > 0
 
 
+@pytest.mark.parametrize("name,args", V_CASES, ids=[c[0] for c in V_CASES])
+def test_cli_v_parity(data, name, args):
+    base, reads, d = data
+    full = args + [base, reads]
+    want = _run(jcli.main, full, str(d / f"{name}.jax"))
+    got = _run(tcli.main, full, str(d / f"{name}.torch"), device="cpu")
+    assert got[0] == want[0] == 0
+    assert got[1] == want[1]
+    assert got[2] == want[2]
+    assert len(want[1]) > 0
+
+
 @pytest.mark.parametrize("name,args,reads", FORMATS,
                          ids=[c[0] for c in FORMATS])
 def test_cli_input_format_parity(data, name, args, reads):
@@ -125,16 +152,27 @@ def test_cli_cmdline_reads_parity(data, capsysbinary):
     assert outs[0] == outs[1]
 
 
-def test_cli_dumps_parity(data):
+def _dumps(data, v):
     base, reads, d = data
     outs = {}
     for tag, main, kw in (("jax", jcli.main, {}),
                           ("torch", tcli.main, {"device": "cpu"})):
-        args = ["-v", "0", "-m", "1", "--un", str(d / f"un.{tag}"),
-                "--al", str(d / f"al.{tag}"), "--max", str(d / f"max.{tag}"),
-                base, reads]
+        tag = tag + v
+        args = ["-v", v, "-m", "1"] + (["-u", "250"] if v != "0" else []) + [
+            "--un", str(d / f"un.{tag}"), "--al", str(d / f"al.{tag}"),
+            "--max", str(d / f"max.{tag}"), base, reads]
         outs[tag] = _run(main, args, str(d / f"dump.{tag}"), **kw)
-    assert outs["jax"] == outs["torch"]
+    assert outs["jax" + v] == outs["torch" + v]
     for kind in ("un", "al", "max"):
-        assert (d / f"{kind}.jax").read_bytes() == \
-            (d / f"{kind}.torch").read_bytes()
+        want, got = d / f"{kind}.jax{v}", d / f"{kind}.torch{v}"
+        assert want.exists() == got.exists()
+        assert want.exists() or v != "0"     # -v 0 here writes all three
+        assert not want.exists() or want.read_bytes() == got.read_bytes()
+
+
+def test_cli_dumps_parity(data):
+    _dumps(data, "0")
+
+
+def test_cli_v_dumps_parity(data):
+    _dumps(data, "2")

@@ -1,8 +1,9 @@
-"""The CUDA kernels (csrc/exact.cu) against their plain PyTorch versions,
-on the card: K2, K3 (walk and dense SA) and K4 must agree element for
-element, also on an index whose SA sample is thinned so that most walks
-pass MAX_WALK and end with ok=False, and the CLI on the card must write
-what it writes on the CPU.
+"""The CUDA kernels (csrc/exact.cu, csrc/dfs.cu) against their plain
+PyTorch versions, on the card: K2, K3 (walk and dense SA) and K4 must agree
+element for element, also on an index whose SA sample is thinned so that
+most walks pass MAX_WALK and end with ok=False; K6, K7 and K8 (the DFS
+machine) on -v 1 / -v 2 / -n launch-A job tables, dense and walk-left; and
+the CLI on the card must write what it writes on the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one; on the
 card (where JAX, which tests/conftest.py imports, may be absent) run
 
@@ -95,8 +96,59 @@ def test_kernels_match_plain(card, form):
                             else "resolve_rows_walk"] == 1
 
 
-@pytest.mark.parametrize("args", [["-v", "0"], ["-v", "0", "-a", "-S"]],
-                         ids=["k1", "a_S"])
+@pytest.mark.parametrize("form", ["dense", "walk"])
+def test_dfs_kernels_match_plain(card, tmp_path, form):
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.align import dfs_jobs as tj
+    from bowtie_tpu_torch.io.readers import ReadSource
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idx, refs = card
+    pair = td.build_fmpair(idx, read_ebwt(BASE + ".rev"), "cuda",
+                           dense_sa=form == "dense")
+    fq = tmp_path / "r.fq"
+    seqs = ["".join("ACGTN"[c] for c in q) for q in _reads(refs, 3000, 7)]
+    fq.write_text("".join(
+        f"@r{i}\n{s}\n+\n"
+        + "".join(chr(33 + (5 * i + 3 * j) % 41) for j in range(len(s)))
+        + "\n" for i, s in enumerate(seqs)))
+    reads = list(ReadSource([str(fq)]).records())
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).cuda()
+    c0 = torch.zeros(len(reads), dtype=torch.int32, device="cuda")
+    runs = [(tj.build_v_jobs_vec(reads, 1, False, False, 64)[0], 1,
+             td.INF32),
+            (tj.build_v_jobs_vec(reads, 2, False, True, 64)[0], td.INF32, 3),
+            (tj.build_n_jobs_a_vec(reads, 2, 28, 70, 125, True, False, False,
+                                   64)[0], td.INF32, td.INF32)]
+    kernels.reset_launches()
+    for jobs, n_k, m_max in runs:
+        dev = td.upload_jobs(jobs, idx.ftab_chars, "cuda")
+        base = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
+            np.stack([jobs[f] for f in td.JOB_FIELDS], -1).astype(np.int32),
+            jobs["base_codes"], jobs["base_qual"], jobs["base_plen"])]
+        want = td.derive_rows_plain(*base, idx.ftab_chars)
+        assert torch.equal(dev["scal"], want[0])
+        assert torch.equal(dev["qqp"], want[1])
+        out, _ = td.run_machine(pair, dev, seeds, c0, n_k=n_k, m_max=m_max,
+                                max_steps=20000)
+        pout, _ = td.run_machine_plain(pair, dev, seeds, c0, n_k=n_k,
+                                       m_max=m_max, max_steps=20000)
+        assert bool((pout["mode"] == td.M_DONE).all())
+        for k in td.OUT_KEYS:
+            assert torch.equal(out[k], pout[k]), k
+        for a, b in zip(td.pack_hits(out), td.pack_hits_plain(pout)):
+            assert torch.equal(a, b)
+        assert int(out["nhits"].sum()) > 0
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["derive_rows"] == 3
+    assert kernels.LAUNCHES["dfs_machine"] == 3
+    assert kernels.LAUNCHES["dfs_pack"] == 3
+
+
+@pytest.mark.parametrize("args", [["-v", "0"], ["-v", "0", "-a", "-S"],
+                                  ["-v", "1"], ["-v", "2", "-a", "-m", "3",
+                                                "-S"]],
+                         ids=["k1", "a_S", "v1", "v2_a_m3_S"])
 def test_cli_on_card_matches_cpu(card, tmp_path, args):
     from bowtie_tpu_torch.cli import align as cli
     idx, refs = card

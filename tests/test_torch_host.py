@@ -177,27 +177,33 @@ def test_launcher_reports_unported_mode():
     import sys
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "bin", "bowtie-tpu-torch"),
-         "-v", "2", "-x", GOLD, "-c", "ACGTACGTAC"],
+         "-v", "3", "-x", GOLD, "-c", "ACGTACGTAC"],
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1
-    assert "-v 2 is not yet ported to bowtie_tpu_torch" in proc.stderr
+    assert "-v 3 is not yet ported to bowtie_tpu_torch" in proc.stderr
 
 
+# (test id, flags, the mode the message names): -v 1/2 run on the DFS
+# machine, but with --best, --strata or -M they go to the best-first
+# engine, which is not ported
 UNPORTED = [
-    ("-n", []),
-    ("-v 1", ["-v", "1"]),
-    ("-v 2", ["-v", "2"]),
-    ("-v 3", ["-v", "3"]),
-    ("--best", ["-v", "0", "--best"]),
-    ("-M", ["-v", "0", "-M", "1"]),
-    ("paired-end input", ["-v", "0", "-1", "a.fq", "-2", "b.fq"]),
-    ("--sanity", ["-v", "0", "--sanity"]),
-    ("--stats", ["-v", "0", "--stats"]),
+    ("-n", [], "-n"),
+    ("-v 1", ["-v", "1", "--best"], "--best"),
+    ("-v 2", ["-v", "2", "-M", "1"], "-M"),
+    ("-v 3", ["-v", "3"], "-v 3"),
+    ("--best", ["-v", "0", "--best"], "--best"),
+    ("-M", ["-v", "0", "-M", "1"], "-M"),
+    ("paired-end input", ["-v", "0", "-1", "a.fq", "-2", "b.fq"],
+     "paired-end input"),
+    ("--sanity", ["-v", "0", "--sanity"], "--sanity"),
+    ("--stats", ["-v", "0", "--stats"], "--stats"),
+    ("-v 2 --strata", ["-v", "2", "--best", "--strata", "-a"], "--best"),
 ]
 
 
-@pytest.mark.parametrize("mode,args", UNPORTED, ids=[m for m, _ in UNPORTED])
-def test_unported_modes_exit_1(mode, args, capsys):
+@pytest.mark.parametrize("case,args,mode", UNPORTED,
+                         ids=[c for c, _, _ in UNPORTED])
+def test_unported_modes_exit_1(case, args, mode, capsys):
     from bowtie_tpu_torch.cli import align as cli
     rc = cli.main(args + [GOLD, "-c", "ACGTACGTAC"], device="cpu")
     assert rc == 1
