@@ -1106,6 +1106,12 @@ def run_machine(pair: FMPair, jobs: dict, seeds: torch.Tensor,
     the module docstring), pairs/elims in a per-lane [S_MAX, L] scratch
     allocated here."""
     scal, qqp = jobs["scal"], jobs["qqp"]
+    if scal.dim() == 3 and scal.shape[1] == 0:
+        # no jobs (--nofw with --norc): a table of one invalid job ends
+        # every lane at its first job load
+        scal = scal.new_zeros((scal.shape[0], 1, NJF))
+        qqp = qqp.new_zeros((qqp.shape[0], 1, qqp.shape[2]))
+        jobs = {"scal": scal, "qqp": qqp}
     dev = pair.device
     if kernels.all_on_cpu(scal, qqp, seeds, count0, device=dev):
         return run_machine_plain(pair, jobs, seeds, count0, n_k=n_k,
@@ -1283,17 +1289,19 @@ class DeviceDFSAligner:
                                        global_seed=self.global_seed)
         return self._exact
 
-    def _exact_gate(self, reads, slow_path):
+    def _exact_gate(self, reads, slow_path, min_len: int = 0):
         """Exact-hit fast path for the default first-1-good policy
         (bowtie_tpu/align/dfs_device.py:1724): every mode's phase 1
         searches the whole read exactly, fw then rc, and re-seeds the
         per-read LCG, so under -k 1 without -m a read with an exact hit
-        reports what -v 0 reports.  Such reads take K4; only the rest
-        enter the machine."""
+        reports what -v 0 reports.  Such reads take K4; only the rest,
+        and reads shorter than min_len (which phase 1 may refuse), enter
+        the machine."""
         if self.policy.n != 1 or self.policy.max < INF32:
             return slow_path(reads)
         res = self._exact_aligner().align_batch(reads)
-        rest = [i for i, r in enumerate(res) if not r.hits]
+        rest = [i for i, r in enumerate(res)
+                if not r.hits or len(reads[i].seq) < min_len]
         if rest:
             for i, r in zip(rest, slow_path([reads[i] for i in rest])):
                 res[i] = r

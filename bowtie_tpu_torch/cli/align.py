@@ -2,10 +2,12 @@
 
 Usage: python -m bowtie_tpu_torch.cli.align [options] <ebwt-base> <reads> [<hits>]
 
-This port runs the exact-match mode (-v 0) and the mismatch modes -v 1
-and -v 2 (the GreedyDFS machine, align/dfs_device.py) with -k/-a/-m
-reporting on the CUDA kernels; -n, -v 3, --best, --strata, -M, paired
-input, --sanity and --stats exit 1 with a "not yet ported" message.
+This port runs the exact-match mode (-v 0), the mismatch modes -v 1 and
+-v 2 (the GreedyDFS machine, align/dfs_device.py) and bowtie's default
+seeded mode -n 0..3 (two launches of that machine, align/n_device.py)
+with -k/-a/-m reporting on the CUDA kernels, with --sanity and --stats;
+-v 3, --best, --strata, -M and paired input exit 1 with a "not yet
+ported" message.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
-from ..align.dfs_device import DeviceDFSAligner
+from ..align.dfs_device import FALLBACKS, DeviceDFSAligner
+from ..align.drivers import OracleAligner
+from ..align.golden import GoldenFM
+from ..align.n_device import DeviceNAligner
 from ..align.pipeline import ExactAligner
 from ..align.policy import INF, AlignStats, KPolicy
 from ..index.arrays import from_ebwt
@@ -25,6 +30,7 @@ from ..io.readers import ReadSource
 from ..io.sam import SamWriter
 from ..io.verbose import VerboseWriter
 from ..utils.device import resolve_device
+from ..utils.metrics import AlignerMetrics
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -213,18 +219,12 @@ def _unported_mode(args) -> str | None:
     """The first requested mode this port cannot run yet, or None."""
     if args.mates1 or args.mates2 or args.tabbed or args.interleaved:
         return "paired-end input"
-    if args.sanity:
-        return "--sanity"
-    if args.stats:
-        return "--stats"
     if args.best:
         return "--best"
     if args.strata:
         return "--strata"
     if args.sample_mhits is not None:
         return "-M"
-    if args.mismatches < 0:
-        return "-n"
     if args.mismatches == 3:
         return "-v 3"
     return None
@@ -316,21 +316,76 @@ def main(argv=None, device=None) -> int:
     if args.all:
         khits = INF
     policy = KPolicy(khits=khits, mhits=mhits)
+    aligner = build_aligner(args, idx, policy, dev)
+    # --stats reports the DFS aligners' oracle re-runs, and none for -v 0
+    # (bowtie_tpu/cli/align.py:914, 919-920)
+    fallbacks0 = (FALLBACKS["lanes"] if isinstance(aligner, DeviceDFSAligner)
+                  else None)
+    if args.sanity:
+        aligner = SanityAligner(
+            aligner, build_aligner(args, idx, policy, dev, host_engine=True))
+    return _run(args, argv, idx, aligner, fmt, cont, fallbacks0)
+
+
+def build_aligner(args, idx, policy, dev, host_engine: bool = False):
+    """The single-end aligner for the mode flags, as the reference's
+    dispatch builds it (bowtie_tpu/cli/align.py:510-642
+    _build_se_aligner).  With host_engine, the aligner that dispatch
+    builds with its host engine forced: the host oracle (OracleAligner)
+    for -v 1/2 and -n, and for -v 0 a second ExactAligner, as there.
+    The mirror index is read as it is: -o re-thins only the forward
+    one, as there."""
     if args.mismatches == 0:
-        aligner = ExactAligner(from_ebwt(idx, device=dev), idx, policy,
-                               nofw=args.nofw, norc=args.norc,
-                               global_seed=args.seed)
-    else:
-        # -v 1/2 (bowtie_tpu/cli/align.py:560-577); the mirror index is
-        # read as it is, -o re-thins only the forward one, as there
-        idx_bw = read_ebwt_cached(args.ebwt_base + ".rev")
-        aligner = DeviceDFSAligner(idx, idx_bw, policy, v=args.mismatches,
-                                   nofw=args.nofw, norc=args.norc,
-                                   global_seed=args.seed, device=dev)
-    return _run(args, argv, idx, aligner, fmt, cont)
+        return ExactAligner(from_ebwt(idx, device=dev), idx, policy,
+                            nofw=args.nofw, norc=args.norc,
+                            global_seed=args.seed)
+    idx_bw = read_ebwt_cached(args.ebwt_base + ".rev")
+    # -n's backtrack ceiling (bowtie_tpu/cli/align.py:622)
+    n_kw = dict(seed_mms=args.seedmms, seed_len=args.seedlen,
+                qual_thresh=args.maqerr,
+                maxbts=args.maxbts if args.maxbts is not None else 125,
+                maq_round=not args.nomaqround)
+    common = dict(nofw=args.nofw, norc=args.norc, global_seed=args.seed)
+    if host_engine:
+        golden = (GoldenFM(idx), GoldenFM(idx_bw))
+        if args.mismatches > 0:
+            return OracleAligner(*golden, policy, v=args.mismatches,
+                                 **common)
+        return OracleAligner(*golden, policy, mode="n", **n_kw, **common)
+    if args.mismatches > 0:
+        return DeviceDFSAligner(idx, idx_bw, policy, v=args.mismatches,
+                                device=dev, **common)
+    return DeviceNAligner(idx, idx_bw, policy, device=dev, **n_kw, **common)
 
 
-def _run(args, argv, idx, aligner, fmt, cont):
+class SanityAligner:
+    """--sanity (bowtie_tpu/cli/align.py:442-474): align each batch with
+    the aligner and with its host twin, and raise AssertionError, naming
+    the read, at the first result that differs; return the aligner's
+    results."""
+
+    def __init__(self, dev, host):
+        self._dev, self._host = dev, host
+
+    @staticmethod
+    def _key(r):
+        return ([(h.fw, h.tidx, h.toff, h.oms, h.stratum, h.cost,
+                  tuple(h.mms), h.mate) for h in r.hits],
+                r.maxed, r.nvalid)
+
+    def align_batch(self, reads):
+        dev = self._dev.align_batch(reads)
+        host = self._host.align_batch(reads)
+        for read, dr, hr in zip(reads, dev, host):
+            if self._key(dr) != self._key(hr):
+                raise AssertionError(
+                    f"--sanity: device/host divergence on read "
+                    f"{read.name!r}: device={self._key(dr)} "
+                    f"host={self._key(hr)}")
+        return dev
+
+
+def _run(args, argv, idx, aligner, fmt, cont, fallbacks0):
     dumps_active = bool(args.un or args.al or args.maxfile)
     src = ReadSource(
         paths=None if fmt == "cmdline" else args.reads.split(","),
@@ -373,6 +428,7 @@ def _run(args, argv, idx, aligner, fmt, cont):
         max_f = un_f
 
     stats = AlignStats()
+    metrics = AlignerMetrics() if args.stats else None
     batch_size = args.reads_per_batch or args.batch_size
     t0 = time.time()
 
@@ -392,6 +448,9 @@ def _run(args, argv, idx, aligner, fmt, cont):
 
     def emit_se(read, res):
         stats.processed += 1
+        if metrics is not None:
+            metrics.next_read(read.codes_fw)
+            metrics.record_result(res)
         if res.maxed:
             # -m exceeded: counted, but NO record is emitted
             # (HitSink::reportMaxed is counter-only, hit.h:494-500)
@@ -420,6 +479,9 @@ def _run(args, argv, idx, aligner, fmt, cont):
                                     aligner.align_batch):
         for read, res in zip(batch, results):
             emit_se(read, res)
+    if metrics is not None:
+        metrics.print(fallbacks=None if fallbacks0 is None
+                      else FALLBACKS["lanes"] - fallbacks0)
     return _finish(args, stats, t0, out, un_f, al_f, max_f)
 
 

@@ -1,5 +1,6 @@
 // The GreedyDFS machine (-v 1/2, and the -n launches): K6 row derivation,
-// K7 the state machine, K8 dense packing of its hit and partial rows.
+// K7 the state machine, K8 dense packing of its hit and partial rows, K9
+// the -n launch-B job table.
 // Built with exact.cu by bowtie_tpu_torch/kernels.py and called through
 // the plain C entry points at the bottom.
 //
@@ -12,9 +13,12 @@
 //                        :2006 _init_state_jit as its prologue
 //   K8 bt_dfs_pack    <- dfs_device.py:1873 _gather_rows, :1926
 //                        _fuse_parts_jit, :1953 _pack_all
+//   K9 bt_derive_b_jobs <- bowtie_tpu/align/n_device.py:85
+//                        _derive_b_jobs_device (less its K6 tail)
 // Plain PyTorch versions, which these are held to: derive_rows_plain,
 // run_machine_plain (the lockstep form, step for step the JAX one) and
-// pack_hits_plain in bowtie_tpu_torch/align/dfs_device.py.  The lane
+// pack_hits_plain in bowtie_tpu_torch/align/dfs_device.py, and
+// derive_b_jobs_plain in bowtie_tpu_torch/align/n_device.py.  The lane
 // compaction of the JAX driver (:1830 _compact) has no counterpart: each
 // thread runs its own lane to the end and retires it.
 //
@@ -830,6 +834,109 @@ dfs_pack_kernel(const int32_t* __restrict__ hits,
     }
 }
 
+// K9: launch B's job table (-n mode) from launch A's outputs, one thread
+// per lane; derive_b_jobs_plain's arithmetic (bowtie_tpu_torch/align/
+// n_device.py).  The thread zeroes its lane's J rows, then writes one
+// extension job per partial of the rc block (slots whose job is jrc) and
+// the rc half-and-half job, then the same for the fw block, in slot
+// order.  It reads the lane's counted partial rows and writes the whole
+// [J][NJF] table, so it is bound by the bytes of the table it writes.
+__device__ __forceinline__ void b_common(int32_t* o, int32_t plen,
+                                         bool is_rc, int32_t maxbts,
+                                         int32_t qt, int32_t maq) {
+    o[F_VALID] = 1;
+    o[F_QLEN] = plen;
+    o[F_FW] = is_rc ? 0 : 1;
+    o[F_EBWT_FW] = is_rc ? 1 : 0;
+    o[F_REP_EXACTS] = 1;
+    o[F_MAX_BTS] = maxbts;
+    o[F_CONS_QUALS] = 1;
+    o[F_QUAL_THRESH] = qt;
+    o[F_MAQ_ROUND] = maq;
+}
+
+__global__ void __launch_bounds__(kThreads)
+derive_b_jobs_kernel(const int32_t* __restrict__ result,
+                     const uint8_t* __restrict__ overflow,
+                     const int32_t* __restrict__ mode,
+                     const int32_t* __restrict__ npart,
+                     const int32_t* __restrict__ part_job,
+                     const int32_t* __restrict__ part_n,
+                     const int32_t* __restrict__ part_pos,
+                     const int32_t* __restrict__ part_refc,
+                     const uint8_t* __restrict__ gated,
+                     const int8_t* __restrict__ qual,
+                     const int32_t* __restrict__ plen_a,
+                     const int32_t* __restrict__ qual_rounds, int B, int L,
+                     int J, int jrc, int n, int s, int qt, int maxbts,
+                     int maq, int norc, int nofw, int32_t* __restrict__ out) {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    int32_t* lane = out + (size_t)b * J * NJF;
+    for (int k = 0; k < J * NJF; ++k) lane[k] = 0;
+    const bool active = result[b] == 0 && !overflow[b] && mode[b] == M_DONE
+        && !gated[b] && n > 0;
+    if (!active) return;
+    const int32_t plen = plen_a[b];
+    const int32_t qs = min(plen, s);
+    const int np = min(npart[b], P_MAX);
+    const int32_t* pj = part_job + (size_t)b * P_MAX;
+    int nrc = 0;
+    for (int t = 0; t < np; ++t) nrc += pj[t] == jrc;
+    const int nfw = np - nrc;
+    const bool hh_rc = n >= 2 && !norc, hh_fw = n >= 2 && !nofw;
+    const int fw_base = nrc + (hh_rc ? 1 : 0);
+    const int8_t* q = qual + (size_t)b * L;
+    // the extension jobs, rc block then fw block, each in slot order
+    for (int blk = 0; blk < 2; ++blk) {
+        const bool is_rc = blk == 0;
+        if (is_rc ? norc : nofw) continue;
+        int j = is_rc ? 0 : fw_base;
+        const int j0 = j;
+        for (int t = 0; t < np; ++t) {
+            if ((pj[t] == jrc) != is_rc) continue;
+            if (j < J) {
+                int32_t* o = lane + (size_t)j * NJF;
+                const size_t p = (size_t)b * P_MAX + t;
+                const int32_t pn = part_n[p];
+                b_common(o, plen, is_rc, maxbts, qt, maq);
+                o[F_UNREV] = o[F_REV1] = o[F_REV2] = o[F_REV3] = qs;
+                int32_t ham0 = 0;
+                for (int k = 0; k < 3 && k < pn; ++k) {
+                    const int32_t pos = part_pos[3 * p + k];
+                    const int32_t c = min(max(pos, 0), L + 3);
+                    const int32_t mq = c < L ? q[c] : 0;
+                    ham0 += maq ? qual_rounds[min(max(mq, 0), 255)] : mq;
+                    o[F_PREMUT_POS0 + k] = plen - 1 - pos;
+                    o[F_PREMUT_REFC0 + k] = part_refc[3 * p + k];
+                }
+                o[F_HAM0] = ham0;
+                o[F_RESET_RNG] = j == j0 ? 1 : 0;
+                o[F_NPREMUT] = pn;
+            }
+            ++j;
+        }
+    }
+    // the half-and-half jobs (search_seeded_phase3.c:29-92 setOffs)
+    const int32_t q5 = (qs >> 1) + (qs & 1);
+    for (int blk = 0; blk < 2; ++blk) {
+        const bool is_rc = blk == 0;
+        if (!(is_rc ? hh_rc : hh_fw)) continue;
+        const int j = is_rc ? nrc : fw_base + nfw;
+        if (j >= J) continue;
+        int32_t* o = lane + (size_t)j * NJF;
+        b_common(o, plen, is_rc, maxbts, qt, maq);
+        o[F_D5] = q5;
+        o[F_D3] = qs;
+        o[F_UNREV] = 0;
+        o[F_REV1] = n <= 2 ? q5 : 0;
+        o[F_REV2] = n < 3 ? qs : q5;
+        o[F_REV3] = qs;
+        o[F_HH] = 1;
+        o[F_RESET_RNG] = 1;
+    }
+}
+
 inline dim3 grid_for(long n) { return dim3((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -864,6 +971,26 @@ int bt_dfs_pack(const void* hits, const void* nh_eff, const void* hoff,
         (const int32_t*)part_pos, (const int32_t*)part_refc,
         (const int32_t*)npart, (const int64_t*)poff, B, (int32_t*)hout,
         (int32_t*)pout);
+    return (int)cudaGetLastError();
+}
+
+int bt_derive_b_jobs(const void* result, const void* overflow,
+                     const void* mode, const void* npart,
+                     const void* part_job, const void* part_n,
+                     const void* part_pos, const void* part_refc,
+                     const void* gated, const void* qual, const void* plen,
+                     const void* qual_rounds, int B, int L, int J, int jrc,
+                     int n, int s, int qt, int maxbts, int maq, int norc,
+                     int nofw, void* out, void* stream) {
+    derive_b_jobs_kernel<<<grid_for(B), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+        (const int32_t*)result, (const uint8_t*)overflow,
+        (const int32_t*)mode, (const int32_t*)npart,
+        (const int32_t*)part_job, (const int32_t*)part_n,
+        (const int32_t*)part_pos, (const int32_t*)part_refc,
+        (const uint8_t*)gated, (const int8_t*)qual, (const int32_t*)plen,
+        (const int32_t*)qual_rounds, B, L, J, jrc, n, s, qt, maxbts, maq,
+        norc, nofw, (int32_t*)out);
     return (int)cudaGetLastError();
 }
 

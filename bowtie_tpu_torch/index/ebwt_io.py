@@ -107,8 +107,10 @@ class EbwtIndex:
         if self._ftab_hi is None:
             mask = np.uint64(0xFFFFFFFFFFFFFFFF) if self.off_size == 8 \
                 else np.uint32(OFF_MASK32)
-            ft = self.ftab.astype(np.int64)
-            esc = ft > self.length
+            # compared unsigned: the 64-bit escapes of a .ebwtl index are
+            # negative as int64 (bowtie_tpu's copy reads them as ranges)
+            ft = self.ftab.astype(np.uint64)
+            esc = ft > np.uint64(self.length)
             eidx = (self.ftab ^ mask).astype(np.int64)
             hi = np.where(esc, self.eftab[np.where(esc, eidx * 2 + 1, 0)], ft)
             lo = np.where(esc, self.eftab[np.where(esc, eidx * 2, 0)], ft)

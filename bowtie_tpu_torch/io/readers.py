@@ -12,7 +12,9 @@ Formats (reference classes):
 - cmdline (-c)     VectorPatternSource   pat.h:260
 - FASTA continuous (-F k,i) FastaContinuousPatternSource pat.h:594
 
-Paired input (-1/-2, --12, --interleaved) is not ported yet.
+Plain FASTQ files go through the native parser (native/fastio.cpp;
+parse_fastq says when the pure-Python parser takes them).  Paired input
+(-1/-2, --12, --interleaved) is not ported yet.
 """
 from __future__ import annotations
 
@@ -119,21 +121,32 @@ def convert_quals(qual: bytes, solexa: bool, phred64: bool,
     return np.clip(arr, 33, 126).astype(np.uint8).tobytes()
 
 
-def parse_fastq(path: str, keep_orig: bool = False
+def parse_fastq(path: str, keep_orig: bool = False, use_native: bool = True
                 ) -> Iterator[tuple[bytes, bytes, bytes]]:
     """FASTQ records as (name, seq, qual), plus the raw 4-line record
-    (readOrigBuf) when keep_orig is set."""
+    (readOrigBuf) when keep_orig is set.  A plain file is parsed by the
+    native parser (native/fastio.cpp) unless use_native is False; the
+    pure-Python parser takes compressed input, stdin, keep_orig (it keeps
+    the raw records) and a file the native parser stops short in, as
+    bowtie_tpu/io/readers.py:130-155 does."""
+    if (use_native and not keep_orig and path != "-"
+            and not path.endswith((".gz", ".bz2"))):
+        from ..native.fastq_native import parse_fastq_bytes
+        with open(path, "rb") as f:
+            buf = f.read()
+        if not buf.strip():
+            _not_fastq()
+        res = parse_fastq_bytes(buf)
+        if res is not None:
+            yield from zip(*res)
+            return
     with _open(path) as f:
         first = True
         while True:
             l1 = f.readline()
             if not l1:
                 if first:
-                    # match the reference on an empty reads file
-                    # (FastqPatternSource first-char check, pat.cpp)
-                    print("Error: reads file does not look like a "
-                          "FASTQ file", file=sys.stderr)
-                    raise SystemExit(1)
+                    _not_fastq()
                 return
             first = False
             l1 = l1.rstrip()
@@ -152,6 +165,14 @@ def parse_fastq(path: str, keep_orig: bool = False
                 yield l1[1:], seq, qual, orig
             else:
                 yield l1[1:], seq, qual
+
+
+def _not_fastq():
+    """Match the reference on an empty reads file (FastqPatternSource
+    first-char check, pat.cpp)."""
+    print("Error: reads file does not look like a FASTQ file",
+          file=sys.stderr)
+    raise SystemExit(1)
 
 
 def parse_fasta(path: str, default_qual: int = 40 + 33,
@@ -266,7 +287,11 @@ class ReadSource:
             return
         for path in self.paths:
             if self.fmt == "fastq":
-                yield from parse_fastq(path, keep_orig=ko)
+                # integer quals are numbers separated by spaces, whose
+                # byte length is not the sequence's: the native parser's
+                # layout does not hold for them
+                yield from parse_fastq(path, keep_orig=ko,
+                                       use_native=not self.integer_quals)
             elif self.fmt == "fasta":
                 yield from parse_fasta(path, keep_orig=ko,
                                        first_line_only=True)

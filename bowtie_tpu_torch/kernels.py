@@ -27,7 +27,7 @@ HEADERS = ("fm.cuh",)
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
             "resolve_rows_sa": 0, "one_row": 0, "derive_rows": 0,
-            "dfs_machine": 0, "dfs_pack": 0}
+            "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -116,6 +116,10 @@ _SIGNATURES = {
     # (hits, nh_eff, hoff, part_n, part_job, part_pos, part_refc, npart,
     #  poff, B, hout, pout, stream)
     "bt_dfs_pack": [_P] * 9 + [ctypes.c_int, _P, _P, _P],
+    # (result, overflow, mode, npart, part_job, part_n, part_pos,
+    #  part_refc, gated, qual, plen, qual_rounds, B, L, J, jrc, n, s, qt,
+    #  maxbts, maq, norc, nofw, out, stream)
+    "bt_derive_b_jobs": [_P] * 12 + [ctypes.c_int] * 11 + [_P, _P],
 }
 
 

@@ -20,7 +20,7 @@ Phases, each printing one JSON line:
              median of 5).  K3 walk and K4 are also held to their plain
              versions on the index with its SA sample thinned to offRate
              13, where most walks pass MAX_WALK and end with ok=False.
-4. cli     - the main path: 200,000 such reads as FASTQ through
+4. cli     - the main path: 100,000 such reads as FASTQ through
              bowtie_tpu_torch.cli.align.main on the card (-v 0 -k 1
              verbose, through K4; -v 0 -a -m 3 -S, through K2 and K3
              walk), each with the launch counters zeroed just before and
@@ -47,14 +47,32 @@ Phases, each printing one JSON line:
              mismatches.  The -v 2 -a -m 3 tables are timed; K7's and
              K8's bytes are those the run reads and writes, counted by
              the plain versions.
-6. cli_v   - 200,000 such reads through the CLI on the card, -v 1 -k 1
+6. cli_v   - 100,000 such reads through the CLI on the card, -v 1 -k 1
              (verbose) and -v 2 -a -m 3 -S, each counted from zero and
              traced by torch.profiler for the device's busy share, with
              the lanes re-run on the host oracle counted; the records of
              the first 2,000 reads must equal the CPU CLI's byte for byte,
              and the library aligner's results on them the host oracle's.
+7. n       - bowtie's default seeded mode: 16,384 reads of the cli_v mix
+             with three mismatches in every third read and qualities from
+             Phred 2-40.  Under -n 2 -k 1, -n 3 -l 20 -a -m 3 and -n 1
+             --nomaqround -e 40, launch A runs on the card (K6, K7), then
+             K9 (derive_b_jobs) and launch B's K7 are each held exactly to
+             their plain versions on the same inputs; K8 packs both
+             launches and every hit must equal its reference substring
+             except at its reported mismatches.  K9 is timed under -n 2
+             -k 1; its bytes are the lanes' scalars, their counted partial
+             rows and the [B, 36, NJF] table it writes (k9_bytes).
+8. cli_n   - 200,000 such reads through the CLI on the card, bowtie's
+             default command (no mode flag: -n 2 -l 28 -e 70 -k 1,
+             verbose) and -n 2 -a -m 3 -S, each counted from zero and
+             traced, held to the CPU CLI and the host oracle on the first
+             2,000 reads as in cli_v; then --sanity --stats on those reads
+             (every batch also through the host oracle) and -n 2 on the
+             in-repo .ebwtl index (tests/golden/small_index_l) against the
+             CPU CLI, both off the main path.
 
-Then the {"kernels": [...]} line (launches: the four CLI runs; K3 dense's
+Then the {"kernels": [...]} line (launches: the six CLI runs; K3 dense's
 library-run launches beside its 0), the script's total seconds, the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
 raises and the script exits non-zero without that last line.  It needs
@@ -83,7 +101,10 @@ sys.path.insert(0, ROOT)
 
 from bowtie_tpu_torch import kernels  # noqa: E402
 from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
-from bowtie_tpu_torch.align.dfs_jobs import build_v_jobs_vec  # noqa: E402
+from bowtie_tpu_torch.align import n_device as nd  # noqa: E402
+from bowtie_tpu_torch.align.backtrack_oracle import QUAL_ROUNDS  # noqa: E402
+from bowtie_tpu_torch.align.dfs_jobs import (  # noqa: E402
+    build_n_jobs_a_vec, build_v_jobs_vec)
 from bowtie_tpu_torch.align.drivers import OracleAligner  # noqa: E402
 from bowtie_tpu_torch.align.golden import GoldenFM  # noqa: E402
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
@@ -94,7 +115,8 @@ from bowtie_tpu_torch.align.policy import INF, KPolicy  # noqa: E402
 from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
 from bowtie_tpu_torch.cli import align as cli  # noqa: E402
 from bowtie_tpu_torch.index.arrays import from_ebwt  # noqa: E402
-from bowtie_tpu_torch.index.ebwt_io import read_ebwt  # noqa: E402
+from bowtie_tpu_torch.index.ebwt_io import (  # noqa: E402
+    read_bitpair_reference, read_ebwt, unpack_reference)
 from bowtie_tpu_torch.io.readers import ReadSource  # noqa: E402
 from bowtie_tpu_torch.utils.rng import fill_seed_caches  # noqa: E402
 
@@ -128,6 +150,8 @@ NO_LIBRARY = "n/a: no single PyTorch call computes an FM backward search"
 NO_LIBRARY_K6 = ("n/a: no single PyTorch call derives the by-depth rows "
                  "and N gates")
 NO_LIBRARY_K7 = "n/a: no single PyTorch call runs a backtracking search"
+NO_LIBRARY_K9 = ("n/a: no single PyTorch call derives the launch-B job "
+                 "table")
 COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -424,7 +448,12 @@ THIN_STEPS = 4000
 
 def time_once(fn, device):
     """(fn(), its ms): CUDA events around one call behind a spin kernel
-    (for the plain versions, whose one run takes seconds)."""
+    (for the plain versions, whose one run takes seconds); the host clock
+    off the card."""
+    if device.type != "cuda":
+        t = time.perf_counter()
+        res = fn()
+        return res, 1e3 * (time.perf_counter() - t)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(1_000_000)
@@ -656,11 +685,15 @@ def phase_dfs(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
     return stats
 
 
-def write_fastq(path, codes, lens):
+def write_fastq(path, codes, lens, quals=None):
+    """FASTQ of codes [n, L] (lens [n]); quals [n, L] Phred values, or
+    Phred 40 ('I') throughout."""
     with open(path, "wb") as f:
         for i, (row, ln) in enumerate(zip(codes, lens)):
             s = CHARS[row[:ln]].tobytes()
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, s, b"I" * ln))
+            q = (b"I" * ln if quals is None
+                 else (quals[i, :ln] + 33).astype(np.uint8).tobytes())
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, s, q))
 
 
 def revcomp(s: bytes) -> bytes:
@@ -821,6 +854,9 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
 
 
 V_SLICE = 2000
+# reads of the -v 0 and -v 1/2 CLI phases (cli, cli_v): cut from 200,000
+# when the -n phases came, to keep the script near half its time limit
+CLI_READS = 100_000
 
 
 def profiled(fn):
@@ -893,6 +929,268 @@ def phase_cli_v(rng, work, device, genome, rep_starts, seg_len, base, idx,
     return runs
 
 
+N_READS = 16384
+# (name, -n, -l, -e, Maq rounding, -k, -m)
+N_POLICIES = (("-n 2 -k 1", 2, 28, 70, True, 1, dfs.INF32),
+              ("-n 3 -l 20 -a -m 3", 3, 20, 70, True, dfs.INF32, 3),
+              ("-n 1 --nomaqround -e 40", 1, 28, 40, False, 1, dfs.INF32))
+N_MAXBTS = 125                 # -n's default backtrack ceiling
+N_STEPS = 60000                # -n's step budget per launch
+
+
+def n_reads(rng, genome, rep_starts, seg_len, n, path):
+    """mm_reads' mix with three mismatches in every third read, and
+    qualities drawn from Phred 2-40 (so that -e and Maq rounding both
+    decide), written as FASTQ and read back."""
+    codes, lens, *_ = make_reads(rng, genome, rep_starts, seg_len, n)
+    rows = np.arange(0, n, 4)
+    col = rng.integers(0, READ_LEN, len(rows))
+    c = codes[rows, col]
+    codes[rows, col] = np.where(c < 4, (c + 1) % 4, c)
+    rows = np.arange(0, n, 3)
+    cols = np.argsort(rng.random((len(rows), READ_LEN)), 1)[:, :3]
+    c = codes[rows[:, None], cols]
+    codes[rows[:, None], cols] = np.where(
+        c < 4, (c + rng.integers(1, 4, c.shape)) % 4, c)
+    quals = rng.integers(2, 41, (n, READ_LEN))
+    write_fastq(path, codes, lens, quals)
+    return list(ReadSource([path]).records())
+
+
+def k9_bytes(out_a, gated, base_plen, scal_b) -> int:
+    """What K9 must read and write: per lane result, mode, npart and plen
+    (4 B each) and overflow and gated (1 B each); for each lane that takes
+    jobs, every partial row it counted (job, n, pos[3], refc[3]: 32 B) and
+    the quality byte at each of its mutations; the 1 KB Maq table; and the
+    whole [B, J, NJF] int32 table it writes."""
+    B = base_plen.shape[0]
+    active = ((out_a["result"] == 0) & ~out_a["overflow"]
+              & (out_a["mode"] == dfs.M_DONE) & ~gated)
+    slot = torch.arange(dfs.P_MAX, device=base_plen.device)[None, :]
+    counted = (slot < out_a["npart"][:, None]) & active[:, None]
+    return (18 * B + 32 * int(counted.sum())
+            + int(out_a["part_n"][counted].sum()) + 4 * 256
+            + 4 * scal_b.numel())
+
+
+def n_case(name, pair, reads, n, s, qt, maq, n_k, m_max, device,
+           genome_chars):
+    """Launch A (K6, K7) on the card, then K9 and launch B's K7 each held
+    exactly to its plain version on the card, on the same inputs; K8 on
+    both launches, and every hit checked against the genome."""
+    fc = pair.ftab_chars
+    B = len(reads)
+    L = dfs._len_bucket(max(READ_LEN, s))
+    jobs, J_A, gated_np, jrc, _ = build_n_jobs_a_vec(
+        reads, n, s, qt, N_MAXBTS, maq, False, False, L)
+    base = [torch.from_numpy(np.ascontiguousarray(jobs[k])).to(device)
+            for k in ("base_codes", "base_qual", "base_plen")]
+    gated = torch.from_numpy(gated_np).to(device)
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).to(device)
+    c0 = torch.zeros(B, dtype=torch.int32, device=device)
+    kw = dict(n_k=n_k, m_max=m_max, max_steps=N_STEPS)
+    out_a, _ = dfs.run_machine(pair, dfs.upload_jobs(jobs, fc, device),
+                               seeds, c0, **kw)
+    qr = torch.from_numpy(QUAL_ROUNDS.astype(np.int32)).to(device)
+    bargs = (out_a, gated, base[1], base[2], qr)
+    bkw = dict(J=nd.J_B, jrc=jrc, n=n, s=s, qt=qt, maxbts=N_MAXBTS, maq=maq,
+               norc=False, nofw=False)
+    scal_b = nd.derive_b_jobs(*bargs, **bkw)
+    pscal_b, k9_plain_ms = time_once(
+        lambda: nd.derive_b_jobs_plain(*bargs, **bkw), device)
+    err9 = max_abs_err([(scal_b, pscal_b)])
+    require(err9 == 0, f"{name}: K9 disagrees with its plain version")
+    scal6, qqp6 = dfs.derive_rows(scal_b, *base, fc)
+    jb = {"scal": scal6, "qqp": qqp6}
+    out_b, transitions = dfs.run_machine(pair, jb, seeds, out_a["count"],
+                                         **kw)
+    (pout_b, iters), k7_plain_ms = time_once(
+        lambda: dfs.run_machine_plain(pair, jb, seeds, out_a["count"], **kw),
+        device)
+    require(bool((pout_b["mode"] == dfs.M_DONE).all()),
+            f"{name}: the plain launch B ran past {N_STEPS} iterations")
+    err7 = max_abs_err([(a, pout_b[k]) for k, a in out_b.items()
+                        if k in dfs.OUT_KEYS])
+    require(err7 == 0, f"{name}: launch B's K7 disagrees with its plain "
+            "version")
+    decoded = []
+    for out in (out_a, out_b):
+        hits, _parts, nh_eff = dfs.pack_hits(out)
+        bounds_l, mk = dfs.decode_hit_cols(hits.cpu().numpy(),
+                                           nh_eff.cpu().numpy())
+        decoded.append([mk(reads[b], j) for b in range(B)
+                        for j in range(bounds_l[b], bounds_l[b + 1])])
+    check_mm_hits(decoded[0] + decoded[1], genome_chars)
+    valid = scal_b[..., dfs.JOB_FIELDS.index("valid")]
+    row = dict(reads=B, jobs_a=J_A, jobs_b=nd.J_B, n=n, seed_len=s, e=qt,
+               maq_round=maq, n_k=n_k, m_max=m_max,
+               gated_lanes=int(gated.sum()),
+               lanes_with_partials=int((out_a["npart"] > 0).sum()),
+               partials=int(out_a["npart"].sum()),
+               lanes_with_b_jobs=int((valid.sum(1) > 0).sum()),
+               b_jobs_valid=int(valid.sum()),
+               b_jobs_premut=int((scal_b[..., dfs.JOB_FIELDS.index(
+                   "npremut")] > 0).sum()),
+               overflow_a=int(out_a["overflow"].sum()),
+               overflow_b=int(out_b["overflow"].sum()),
+               hits_a=len(decoded[0]), hits_b=len(decoded[1]),
+               hits_b_with_mismatches=sum(1 for h in decoded[1] if h.mms),
+               plain_b_iterations=int(iters),
+               kernel_b_max_transitions=int(transitions),
+               k9_plain_ms=k9_plain_ms, k7_b_plain_ms=k7_plain_ms,
+               max_abs_err=max(err9, err7))
+    nbytes9 = k9_bytes(out_a, gated, base[2], scal_b)
+    stat = dict(
+        name="K9 derive_b_jobs", route="cuda", source=DFS_SOURCE,
+        replaces="bowtie_tpu/align/n_device.py:85",
+        ms=time_ms(lambda: nd.derive_b_jobs(*bargs, **bkw), device, 20),
+        plain_ms=k9_plain_ms,
+        **bounds(nbytes9, 0, 0, 0, -(-nbytes9 // SECTOR)),
+        library_ms=None, library=NO_LIBRARY_K9, max_abs_err=err9,
+        lanes=B, bytes=nbytes9, policy=name)
+    return row, stat
+
+
+def phase_n(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw):
+    """-n's launch B on the card: K9 and launch B's K7 held to their
+    plain versions under -n 2 -k 1, -n 3 -l 20 -a -m 3 and -n 1
+    --nomaqround -e 40; K9 timed on the first."""
+    genome_chars = CHARS[genome].tobytes()
+    reads = n_reads(rng, genome, rep_starts, seg_len, N_READS,
+                    os.path.join(work, "n.fq"))
+    pair = dfs.build_fmpair(idx, idx_bw, device, dense_sa=True)
+    cases, stat = {}, None
+    for name, n, s, qt, maq, n_k, m_max in N_POLICIES:
+        t = time.time()
+        cases[name], st = n_case(name, pair, reads, n, s, qt, maq, n_k,
+                                 m_max, device, genome_chars)
+        cases[name]["wall_s"] = time.time() - t
+        stat = stat or st
+    require(all(c["b_jobs_premut"] > 0 for c in cases.values()),
+            "a policy derived no extension job")
+    emit({"phase": "n", "cases": cases, "ms": {"K9": stat["ms"]}})
+    return {"K9": stat}
+
+
+GOLD = os.path.join(ROOT, "tests", "golden", "small_index", "small_oracle")
+GOLD_L = os.path.join(ROOT, "tests", "golden", "small_index_l",
+                      "small_oracle")
+
+
+def gold_reads(rng, path, n=400):
+    """Seeded 30-40 bp reads of the in-repo small genome (0-2
+    mismatches, half reverse complemented) and its exact 36-mers whose
+    last ftabChars bases name an escaped ftab entry of the .ebwtl index."""
+    refs = unpack_reference(*read_bitpair_reference(GOLD))
+    out = []
+    for k in range(n):
+        r = refs[k % len(refs)]
+        ln = int(rng.integers(30, 41))
+        p = int(rng.integers(0, len(r) - ln))
+        q = np.minimum(r[p:p + ln], 4).astype(np.uint8)
+        for _ in range(k % 3):
+            q[int(rng.integers(ln))] = rng.integers(4)
+        if k % 2:
+            q = COMP[q[::-1]]
+        out.append((b"g%d" % k, q, rng.integers(2, 41, ln)))
+    idx = read_ebwt(GOLD_L)
+    esc = set(np.nonzero(idx.ftab > np.uint64(idx.length))[0].tolist())
+    fc, g = idx.ftab_chars, refs[0]
+    weights = 4 ** np.arange(fc - 1, -1, -1)
+    for p in range(len(g) - READ_LEN):
+        q = g[p:p + READ_LEN]
+        foff = int((q[READ_LEN - fc:] * weights).sum())
+        if (q < 4).all() and (foff in esc or foff + 1 in esc):
+            out.append((b"esc%d" % p, q.astype(np.uint8),
+                        np.full(READ_LEN, 40)))
+    with open(path, "wb") as f:
+        for name, q, ph in out:
+            f.write(b"@%s\n%s\n+\n%s\n" % (name, CHARS[q].tobytes(),
+                                            (ph + 33).astype(np.uint8)
+                                            .tobytes()))
+    return sum(1 for o in out if o[0].startswith(b"esc"))
+
+
+def phase_cli_n(rng, work, device, base, idx, idx_bw, golden, genome,
+                rep_starts, seg_len, n_reads_total, gpu):
+    """bowtie's default command (-n 2 -l 28 -e 70 -k 1, verbose) and -n 2
+    -a -m 3 -S through the CLI on the card, each counted from zero and
+    traced; the records of the first V_SLICE reads must equal the CPU
+    CLI's, and the library aligner's results on them the host oracle's.
+    Then --sanity --stats on those reads, and -n 2 on the in-repo .ebwtl
+    index against the CPU CLI (checks, off the main path)."""
+    reads = os.path.join(work, "n_reads.fq")
+    n_reads(rng, genome, rep_starts, seg_len, n_reads_total, reads)
+    head = os.path.join(work, "n_head.fq")
+    with open(reads, "rb") as f, open(head, "wb") as g:
+        g.writelines(f.readlines()[:4 * V_SLICE])
+    head_reads = list(ReadSource([head]).records())
+    names = {r.name for r in head_reads}
+    cpu = torch.device("cpu")
+    runs, rows = {}, {}
+    for tag, args, policy in (
+            ("-n 2 (default)", [], KPolicy(khits=1)),
+            ("-n 2 -a -m 3 -S", ["-n", "2", "-a", "-m", "3", "-S"],
+             KPolicy(khits=INF, mhits=3))):
+        out = os.path.join(work, "n%d.out" % len(args))
+        dfs.FALLBACKS["lanes"] = 0
+        ((wall, err), busy), launches = counted(lambda: profiled(
+            lambda: run_cli(args + ["-x", base, reads, out], device)),
+            device)
+        fallbacks = dfs.FALLBACKS["lanes"]
+        require(all(launches[k] > 0 for k in (
+            "derive_rows", "dfs_machine", "dfs_pack", "derive_b_jobs")),
+            f"cli {tag} launched {launches}")
+        t = time.time()
+        run_cli(args + ["-x", base, head, out + ".cpu"], cpu)
+        cpu_s = time.time() - t
+        want = records_of(out + ".cpu", names)
+        require(records_of(out, names) == want, f"cli {tag}: card and CPU "
+                f"records of the first {V_SLICE} reads differ")
+        lib = nd.DeviceNAligner(idx, idx_bw, policy, device=device)
+        got = [result_key(r) for r in lib.align_batch(head_reads)]
+        t = time.time()
+        ora = OracleAligner(*golden, policy, mode="n", maxbts=N_MAXBTS)
+        require(got == [result_key(r) for r in ora.align_batch(head_reads)],
+                f"{tag}: the card's results on the first {V_SLICE} reads "
+                "differ from the host oracle's")
+        rows[tag] = {"wall_s": wall, "reads_per_s": n_reads_total / wall,
+                     "device_busy_s": busy, "device_busy_share": busy / wall,
+                     "launches": launches, "fallbacks": fallbacks,
+                     "cpu_equal_lines": len(want), "cpu_slice_s": cpu_s,
+                     "oracle_s": time.time() - t,
+                     "summary": err.strip().splitlines()}
+        runs["cli " + tag] = launches
+    # --sanity --stats: every batch also through the host oracle; a
+    # divergence raises (run_cli then fails)
+    t = time.time()
+    (_w, err), launches = counted(lambda: run_cli(
+        ["--sanity", "--stats", "-x", base, head,
+         os.path.join(work, "sanity.out")], device), device)
+    require("AlignerMetrics:" in err, "--stats printed no metrics")
+    rows["--sanity --stats (first slice)"] = {
+        "wall_s": time.time() - t, "launches": launches,
+        "stderr": err.strip().splitlines()}
+    runs["check --sanity --stats"] = launches
+    # the .ebwtl index on the card against the CPU
+    g_fq = os.path.join(work, "gold.fq")
+    n_esc = gold_reads(rng, g_fq)
+    outs = []
+    for dev in (device, cpu):
+        o = os.path.join(work, f"ebwtl.{dev.type}")
+        _w, err = run_cli(["-n", "2", "-x", GOLD_L, g_fq, o], dev)
+        with open(o, "rb") as f:
+            outs.append((f.read(), err))
+    require(outs[0] == outs[1], ".ebwtl: card and CPU CLI output differ")
+    require(len(outs[0][0]) > 0, ".ebwtl: no alignments")
+    rows["-n 2 on small_index_l (.ebwtl)"] = {
+        "escaped_ftab_reads": n_esc, "summary": outs[0][1].splitlines()}
+    emit({"phase": "cli_n", "reads": n_reads_total, "gpu": gpu,
+          "slice_reads": V_SLICE, "runs": rows})
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -929,12 +1227,17 @@ def main() -> int:
     stats.update(phase_dfs(rng, work, device, genome, rep_starts, seg_len,
                            idx, idx_bw, golden))
     runs = phase_cli(rng, work, device, genome, rep_starts, seg_len,
-                     base, idx, fm_sa, 200_000, gpu)
+                     base, idx, fm_sa, CLI_READS, gpu)
     runs.update(phase_cli_v(rng, work, device, genome, rep_starts, seg_len,
-                            base, idx, idx_bw, golden, 200_000, gpu))
+                            base, idx, idx_bw, golden, CLI_READS, gpu))
+    stats.update(phase_n(rng, work, device, genome, rep_starts, seg_len,
+                         idx, idx_bw))
+    runs.update(phase_cli_n(rng, work, device, base, idx, idx_bw, golden,
+                            genome, rep_starts, seg_len, 200_000, gpu))
     counter = {"K2": "exact_ranges", "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",
-               "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack"}
+               "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
+               "K9": "derive_b_jobs"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
     for key, entry in stats.items():

@@ -5,7 +5,8 @@
 
 Builds chip_smoke.py's seeded 4.6 Mbp genome index and reads, then runs
 bowtie_tpu_torch.cli.align.main four times per configuration (-v 0 -k 1,
--v 0 -a -m 3 -S, -v 1 -k 1, -v 2 -a -m 3 -S): a warm-up, a timed run
+-v 0 -a -m 3 -S, -v 1 -k 1, -v 2 -a -m 3 -S, bowtie's default command
+-n 2 -k 1, -n 2 -a -m 3 -S): a warm-up, a timed run
 (wall s, reads/s, lanes re-run on the host oracle), a run under cProfile
 for the host breakdown (the top functions by own time, and the time
 inside the host oracle's align_read) and a run under torch.profiler for
@@ -37,11 +38,16 @@ from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
 from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
 from bowtie_tpu_torch.cli import align as cli  # noqa: E402
 
-CONFIGS = {"k1": ["-v", "0", "-k", "1"],
-           "a_m3_S": ["-v", "0", "-a", "-m", "3", "-S",
-                      "--batch-size", "65536"],
-           "v1_k1": ["-v", "1", "-k", "1"],
-           "v2_a_m3_S": ["-v", "2", "-a", "-m", "3", "-S"]}
+# name -> (flags, reads: chip_smoke's make_reads mix ("exact"), its
+# cli_v mix ("mm", a second mismatch in every fourth read) or its cli_n
+# mix ("n", three mismatches in every third read, qualities Phred 2-40))
+CONFIGS = {"k1": (["-v", "0", "-k", "1"], "exact"),
+           "a_m3_S": (["-v", "0", "-a", "-m", "3", "-S",
+                       "--batch-size", "65536"], "exact"),
+           "v1_k1": (["-v", "1", "-k", "1"], "mm"),
+           "v2_a_m3_S": (["-v", "2", "-a", "-m", "3", "-S"], "mm"),
+           "n2_k1": ([], "n"),             # bowtie's default command
+           "n2_a_m3_S": (["-n", "2", "-a", "-m", "3", "-S"], "n")}
 
 
 def run(args) -> float:
@@ -75,15 +81,15 @@ def main() -> int:
     codes, lens, *_ = cs.make_reads(rng, genome, rep, 2000, args.reads)
     reads = os.path.join(work, "reads.fq")
     cs.write_fastq(reads, codes, lens)
-    # the -v modes read chip_smoke's cli_v mix (a second mismatch in
-    # every fourth read)
-    mm_reads = os.path.join(work, "mm_reads.fq")
-    cs.mm_reads(rng, genome, rep, 2000, args.reads, mm_reads)
+    paths = {"exact": reads, "mm": os.path.join(work, "mm_reads.fq"),
+             "n": os.path.join(work, "n_reads.fq")}
+    cs.mm_reads(rng, genome, rep, 2000, args.reads, paths["mm"])
+    cs.n_reads(rng, genome, rep, 2000, args.reads, paths["n"])
 
     tables = []
-    for name, flags in CONFIGS.items():
-        src = reads if flags[1] == "0" else mm_reads
-        argv = flags + ["-x", base, src, os.path.join(work, name + ".out")]
+    for name, (flags, kind) in CONFIGS.items():
+        argv = flags + ["-x", base, paths[kind],
+                        os.path.join(work, name + ".out")]
         run(argv)                                    # warm: build, caches
         dfs.FALLBACKS["lanes"] = 0
         wall = run(argv)

@@ -2,8 +2,10 @@
 PyTorch versions, on the card: K2, K3 (walk and dense SA) and K4 must agree
 element for element, also on an index whose SA sample is thinned so that
 most walks pass MAX_WALK and end with ok=False; K6, K7 and K8 (the DFS
-machine) on -v 1 / -v 2 / -n launch-A job tables, dense and walk-left; and
-the CLI on the card must write what it writes on the CPU.
+machine) on -v 1 / -v 2 / -n launch-A job tables, dense and walk-left; K9
+(the -n launch-B job table) and K6/K7 on the tables it derives; and the
+CLI on the card (-v 0/1/2, -n, --sanity, --stats) must write what it
+writes on the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one; on the
 card (where JAX, which tests/conftest.py imports, may be absent) run
 
@@ -13,6 +15,7 @@ import contextlib
 import dataclasses
 import io
 import os
+import re
 
 import numpy as np
 import pytest
@@ -145,10 +148,72 @@ def test_dfs_kernels_match_plain(card, tmp_path, form):
     assert kernels.LAUNCHES["dfs_pack"] == 3
 
 
+def _n_reads(refs, n, seed, path):
+    """Reads of _reads' mix as FASTQ with varied qualities, read back."""
+    from bowtie_tpu_torch.io.readers import ReadSource
+    seqs = ["".join("ACGTN"[c] for c in q) for q in _reads(refs, n, seed)]
+    path.write_text("".join(
+        f"@r{i}\n{s}\n+\n"
+        + "".join(chr(35 + (5 * i + 3 * j) % 39) for j in range(len(s)))
+        + "\n" for i, s in enumerate(seqs)))
+    return list(ReadSource([str(path)]).records())
+
+
+@pytest.mark.parametrize("n,s,nofw,norc,maq", [
+    (2, 28, False, False, True), (3, 20, False, False, False),
+    (1, 28, True, False, True), (2, 15, False, True, True)],
+    ids=["n2", "n3_l20_nomaq", "n1_nofw", "n2_l15_norc"])
+def test_n_kernels_match_plain(card, tmp_path, n, s, nofw, norc, maq):
+    """K9 and launch B's K6/K7 equal their plain versions on the card, on
+    the outputs of launch A run on the card."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.align import dfs_jobs as tj
+    from bowtie_tpu_torch.align import n_device as tn
+    from bowtie_tpu_torch.align.backtrack_oracle import QUAL_ROUNDS
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idx, refs = card
+    pair = td.build_fmpair(idx, read_ebwt(BASE + ".rev"), "cuda")
+    reads = _n_reads(refs, 3000, 11, tmp_path / "r.fq")
+    jobs, _J, gated, jrc, _jfw = tj.build_n_jobs_a_vec(
+        reads, n, s, 70, 125, maq, nofw, norc, 64)
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).cuda()
+    c0 = torch.zeros(len(reads), dtype=torch.int32, device="cuda")
+    kw = dict(n_k=td.INF32, m_max=td.INF32, max_steps=60000)
+    kernels.reset_launches()
+    out_a, _ = td.run_machine(pair, td.upload_jobs(jobs, idx.ftab_chars,
+                                                   "cuda"), seeds, c0, **kw)
+    base = [torch.from_numpy(np.ascontiguousarray(jobs[k])).cuda()
+            for k in ("base_codes", "base_qual", "base_plen")]
+    bkw = dict(J=tn.J_B, jrc=jrc, n=n, s=s, qt=70, maxbts=125, maq=maq,
+               norc=norc, nofw=nofw)
+    args = (out_a, torch.from_numpy(gated).cuda(), base[1], base[2],
+            torch.from_numpy(QUAL_ROUNDS.astype(np.int32)).cuda())
+    scal = tn.derive_b_jobs(*args, **bkw)
+    assert torch.equal(scal, tn.derive_b_jobs_plain(*args, **bkw))
+    assert int(scal[..., td.JOB_FIELDS.index("npremut")].sum()) > 0
+    scal, qqp = td.derive_rows(scal, *base, idx.ftab_chars)
+    out_b, _ = td.run_machine(pair, {"scal": scal, "qqp": qqp}, seeds,
+                              out_a["count"], **kw)
+    pout, _ = td.run_machine_plain(pair, {"scal": scal, "qqp": qqp}, seeds,
+                                   out_a["count"], **kw)
+    assert bool((pout["mode"] == td.M_DONE).all())
+    for k in td.OUT_KEYS:
+        assert torch.equal(out_b[k], pout[k]), k
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["derive_b_jobs"] == 1
+    assert kernels.LAUNCHES["dfs_machine"] == 2
+
+
 @pytest.mark.parametrize("args", [["-v", "0"], ["-v", "0", "-a", "-S"],
                                   ["-v", "1"], ["-v", "2", "-a", "-m", "3",
-                                                "-S"]],
-                         ids=["k1", "a_S", "v1", "v2_a_m3_S"])
+                                                "-S"],
+                                  [], ["-n", "3", "-l", "20", "-a", "-m",
+                                       "3", "-S"],
+                                  ["-n", "1", "--nomaqround", "-e", "40",
+                                   "--sanity", "--stats"]],
+                         ids=["k1", "a_S", "v1", "v2_a_m3_S", "n2_default",
+                              "n3_l20_a_m3_S", "n1_sanity_stats"])
 def test_cli_on_card_matches_cpu(card, tmp_path, args):
     from bowtie_tpu_torch.cli import align as cli
     idx, refs = card
@@ -164,5 +229,6 @@ def test_cli_on_card_matches_cpu(card, tmp_path, args):
                             device=dev) == 0
         body = [ln for ln in out.read_bytes().splitlines(keepends=True)
                 if not ln.startswith(b"@PG")]   # @PG holds the argv
-        outs.append((b"".join(body), err.getvalue()))
+        outs.append((b"".join(body),
+                     re.sub(r"wall time: .*", "", err.getvalue())))
     assert outs[0] == outs[1]

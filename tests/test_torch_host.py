@@ -1,8 +1,10 @@
 """Host layer of the PyTorch port against the JAX package: the index
-reader, the per-read RNG, the index builder, the package boundary and
-the device policy of the entry points."""
+reader, the per-read RNG, the index builder, the native FASTQ parser,
+--stats' metrics, the package boundary and the device policy of the entry
+points."""
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -38,7 +40,11 @@ def test_read_ebwt_arrays_equal(base):
             np.testing.assert_array_equal(a, b, err_msg=f)
         else:
             assert a == b, f
-    for a, b in zip(j.ftab_resolved(), t.ftab_resolved()):
+    # the escaped ftab entries of a .ebwtl index resolve as those of the
+    # .ebwt index of the same genome (the reference package misreads the
+    # 64-bit escapes: ROADMAP, queue 3)
+    j32 = j_io.read_ebwt(base.replace("small_index_l", "small_index"))
+    for a, b in zip(j32.ftab_resolved(), t.ftab_resolved()):
         np.testing.assert_array_equal(a, b)
 
 
@@ -183,11 +189,12 @@ def test_launcher_reports_unported_mode():
     assert "-v 3 is not yet ported to bowtie_tpu_torch" in proc.stderr
 
 
-# (test id, flags, the mode the message names): -v 1/2 run on the DFS
-# machine, but with --best, --strata or -M they go to the best-first
-# engine, which is not ported
+# (test id, flags, the mode the message names): -v 1/2 and -n run on the
+# DFS machine, but with --best, --strata or -M they go to the best-first
+# engine, which is not ported; --sanity and --stats run with every ported
+# mode and refuse with the rest
 UNPORTED = [
-    ("-n", [], "-n"),
+    ("-n", ["-n", "2", "--best"], "--best"),
     ("-v 1", ["-v", "1", "--best"], "--best"),
     ("-v 2", ["-v", "2", "-M", "1"], "-M"),
     ("-v 3", ["-v", "3"], "-v 3"),
@@ -195,8 +202,8 @@ UNPORTED = [
     ("-M", ["-v", "0", "-M", "1"], "-M"),
     ("paired-end input", ["-v", "0", "-1", "a.fq", "-2", "b.fq"],
      "paired-end input"),
-    ("--sanity", ["-v", "0", "--sanity"], "--sanity"),
-    ("--stats", ["-v", "0", "--stats"], "--stats"),
+    ("--sanity", ["-n", "2", "--sanity", "-M", "1"], "-M"),
+    ("--stats", ["-v", "3", "--stats"], "-v 3"),
     ("-v 2 --strata", ["-v", "2", "--best", "--strata", "-a"], "--best"),
 ]
 
@@ -209,3 +216,96 @@ def test_unported_modes_exit_1(case, args, mode, capsys):
     assert rc == 1
     assert f"{mode} is not yet ported to bowtie_tpu_torch" in \
         capsys.readouterr().err
+
+
+def _fastq_variants(tmp_path):
+    """FASTQ files the native parser reads: plain, CRLF, '+name' lines and
+    reads longer than the reference's 1,024-base cap; and one whose
+    quality line is short, where the native parser stops early."""
+    rng = np.random.default_rng(4)
+    recs = []
+    for i in range(300):
+        ln = int(rng.integers(1, 60)) if i % 50 else 1500
+        seq = "".join(rng.choice(list("ACGTN"), ln))
+        qual = "".join(chr(33 + int(x)) for x in rng.integers(0, 41, ln))
+        recs.append((f"r{i} desc {i}", seq, qual))
+    plain = "".join(f"@{n}\n{s}\n+\n{q}\n" for n, s, q in recs)
+    files = {
+        "plain": plain,
+        "crlf": plain.replace("\n", "\r\n"),
+        "plus_name": "".join(f"@{n}\n{s}\n+{n}\n{q}\n" for n, s, q in recs),
+        "blank_lines": "\n".join(f"@{n}\n{s}\n+\n{q}\n"
+                                 for n, s, q in recs),
+        "short_qual": plain + "@bad\nACGT\n+\nII\n",
+    }
+    for k, text in files.items():
+        (tmp_path / f"{k}.fq").write_text(text)
+    return {k: str(tmp_path / f"{k}.fq") for k in files}
+
+
+def test_native_fastq_matches_python(tmp_path):
+    from bowtie_tpu_torch.io import readers
+    from bowtie_tpu_torch.native.fastq_native import parse_fastq_bytes
+    for name, path in _fastq_variants(tmp_path).items():
+        native = list(readers.parse_fastq(path))
+        python = list(readers.parse_fastq(path, use_native=False))
+        assert native == python, name
+        assert len(native) >= 300
+        with open(path, "rb") as f:
+            res = parse_fastq_bytes(f.read())
+        assert (res is None) == (name == "short_qual"), name
+        if res is not None:
+            assert list(zip(*res)) == native
+
+
+def test_native_reader_matches_jax(tmp_path):
+    """ReadSource with the native parser (the port's default) gives the
+    reference's records, quality conversion included."""
+    from bowtie_tpu.io.readers import ReadSource as JSource
+    from bowtie_tpu_torch.io.readers import ReadSource as TSource
+    for name, path in _fastq_variants(tmp_path).items():
+        for kw in ({}, {"phred64": True}, {"trim5": 2, "upto": 120}):
+            j = [(r.name, r.seq, r.qual) for r in JSource([path], **kw)
+                 .records()]
+            t = [(r.name, r.seq, r.qual) for r in TSource([path], **kw)
+                 .records()]
+            assert j == t, (name, kw)
+
+
+def test_fastio_build_failure_raises(monkeypatch, tmp_path):
+    """A failed g++ build raises; nothing falls back to the pure-Python
+    parser behind it."""
+    import subprocess
+    from bowtie_tpu_torch.native import build
+    monkeypatch.setattr(build, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_cached", {})
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: subprocess.
+                        CompletedProcess(a, 1, "", "g++: not found"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        build.load_fastio()
+
+
+def test_aligner_metrics_match_jax(capsys):
+    from bowtie_tpu.align.policy import ReadResult as JRes
+    from bowtie_tpu.align.types import Hit as JHit
+    from bowtie_tpu.utils.metrics import AlignerMetrics as JMetrics
+    from bowtie_tpu_torch.align.policy import ReadResult as TRes
+    from bowtie_tpu_torch.align.types import Hit as THit
+    from bowtie_tpu_torch.utils.metrics import AlignerMetrics as TMetrics
+    outs = []
+    for Metrics, Read, Hit, Res in ((JMetrics, JRead, JHit, JRes),
+                                    (TMetrics, TRead, THit, TRes)):
+        m = Metrics()
+        for i, r in enumerate(_random_reads(Read, 200, 8)):
+            m.next_read(r.codes_fw)
+            hits = [Hit(read=r, fw=True, tidx=0, toff=j, oms=0,
+                        stratum=(i + j) % 3) for j in range(i % 4)]
+            m.record_result(Res(hits, maxed=i % 7 == 3))
+        m.t0 = 0.0
+        m.print(fallbacks=i % 5 if Metrics is TMetrics else 4)
+        m.print()
+        outs.append(capsys.readouterr().err)
+    for o in outs:
+        assert "stratum 2:" in o and "fallbacks: 4" in o
+    mask = [re.sub(r"wall time: .*", "", o) for o in outs]
+    assert mask[0] == mask[1]
