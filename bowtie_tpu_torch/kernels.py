@@ -21,13 +21,14 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
-SOURCES = ("exact.cu", "dfs.cu")
+SOURCES = ("exact.cu", "dfs.cu", "best.cu")
 HEADERS = ("fm.cuh",)
 
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
             "resolve_rows_sa": 0, "one_row": 0, "derive_rows": 0,
-            "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0}
+            "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
+            "best_machine": 0, "best_pack": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -120,6 +121,13 @@ _SIGNATURES = {
     #  part_refc, gated, qual, plen, qual_rounds, B, L, J, jrc, n, s, qt,
     #  maxbts, maq, norc, nofw, out, stream)
     "bt_derive_b_jobs": [_P] * 12 + [ctypes.c_int] * 11 + [_P, _P],
+    # (args, stream); BestArgs is align/best_device.py's
+    "bt_best_machine": [_P, _P],
+    # (result, overflow, count, best_stratum, nhits, hits, hoff, B, out,
+    #  stream)
+    "bt_best_pack": [_P] * 7 + [ctypes.c_int, _P, _P],
+    # (nd, ndt) -> the width of the machine's per-lane init row
+    "bt_best_init_width": [ctypes.c_int, ctypes.c_int],
 }
 
 

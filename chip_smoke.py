@@ -51,7 +51,7 @@ Phases, each printing one JSON line:
              (verbose) and -v 2 -a -m 3 -S, each counted from zero and
              traced by torch.profiler for the device's busy share, with
              the lanes re-run on the host oracle counted; the records of
-             the first 2,000 reads must equal the CPU CLI's byte for byte,
+             the first 1,000 reads must equal the CPU CLI's byte for byte,
              and the library aligner's results on them the host oracle's.
 7. n       - bowtie's default seeded mode: 16,384 reads of the cli_v mix
              with three mismatches in every third read and qualities from
@@ -63,16 +63,35 @@ Phases, each printing one JSON line:
              except at its reported mismatches.  K9 is timed under -n 2
              -k 1; its bytes are the lanes' scalars, their counted partial
              rows and the [B, 36, NJF] table it writes (k9_bytes).
-8. cli_n   - 200,000 such reads through the CLI on the card, bowtie's
+8. cli_n   - 100,000 such reads through the CLI on the card, bowtie's
              default command (no mode flag: -n 2 -l 28 -e 70 -k 1,
              verbose) and -n 2 -a -m 3 -S, each counted from zero and
              traced, held to the CPU CLI and the host oracle on the first
-             2,000 reads as in cli_v; then --sanity --stats on those reads
+             1,000 reads as in cli_v; then --sanity --stats on those reads
              (every batch also through the host oracle) and -n 2 on the
              in-repo .ebwtl index (tests/golden/small_index_l) against the
              CPU CLI, both off the main path.
+9. best    - the best-first machine: 2,048 reads of the n phase's mix.
+             K10 (best_machine) and K11 (best_pack) each held exactly to
+             its plain version on the card under -v 2 -k 3 --best --strata,
+             -v 3 -m 1 --best and -n 2 -M 1 --best on the dense pair (plain
+             budget 2,000 iterations), and -v 1 -k 1 --best on 128 reads
+             with the pair thinned to offRate 13 (walk-left; budget 2,500):
+             K10 lane for lane wherever the plain version finished within
+             its budget, and on the first 96 lanes past that budget that
+             K10 finished, through the aligner's assemble, to the host
+             best-first engine (the budget rule of align/best_device.py).  Every hit must equal its reference
+             substring except at its reported mismatches.  The first policy
+             is timed; K10's bytes are those the run reads and writes,
+             counted by the plain version.
+10. cli_best - 50,000 such reads through the CLI on the card, -v 2 -m 1
+             --best --strata -S and -n 2 --best -k 1 (verbose), each counted
+             from zero and traced, with the reads re-run on the host engine
+             counted; every hit must equal its reference substring except at
+             its reported mismatches, and the records of the first 400
+             reads must equal the CPU CLI's byte for byte.
 
-Then the {"kernels": [...]} line (launches: the six CLI runs; K3 dense's
+Then the {"kernels": [...]} line (launches: the eight CLI runs; K3 dense's
 library-run launches beside its 0), the script's total seconds, the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
 raises and the script exits non-zero without that last line.  It needs
@@ -87,6 +106,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -100,6 +120,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from bowtie_tpu_torch import kernels  # noqa: E402
+from bowtie_tpu_torch.align import best_device as bd  # noqa: E402
 from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
 from bowtie_tpu_torch.align import n_device as nd  # noqa: E402
 from bowtie_tpu_torch.align.backtrack_oracle import QUAL_ROUNDS  # noqa: E402
@@ -152,6 +173,9 @@ NO_LIBRARY_K6 = ("n/a: no single PyTorch call derives the by-depth rows "
 NO_LIBRARY_K7 = "n/a: no single PyTorch call runs a backtracking search"
 NO_LIBRARY_K9 = ("n/a: no single PyTorch call derives the launch-B job "
                  "table")
+NO_LIBRARY_K10 = ("n/a: no single PyTorch call runs a best-first "
+                  "branch-and-bound search")
+BEST_SOURCE = "bowtie_tpu_torch/csrc/best.cu"
 COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -853,10 +877,13 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
     return runs
 
 
-V_SLICE = 2000
+V_SLICE = 1000
 # reads of the -v 0 and -v 1/2 CLI phases (cli, cli_v): cut from 200,000
-# when the -n phases came, to keep the script near half its time limit
+# when the -n phases came, to keep the script near half its time limit;
+# those of the -n CLI phase (cli_n) likewise when the best-first phases
+# came, and the CPU slices of cli_v and cli_n from 2,000 reads to 1,000
 CLI_READS = 100_000
+CLI_N_READS = 100_000
 
 
 def profiled(fn):
@@ -1191,6 +1218,301 @@ def phase_cli_n(rng, work, device, base, idx, idx_bw, golden, genome,
     return runs
 
 
+BEST_READS = 2048
+THIN_BEST_READS = 128
+BEST_STEPS = 2000              # the plain version's step budget, dense pair
+THIN_BEST_STEPS = 2500         # and on the offRate-13 pair
+BEST_HOST_LANES = 96           # lanes past the budget held to the host engine
+# (name, aligner kwargs, policy (khits, mhits, -M), thinned pair)
+BEST_POLICIES = (
+    ("-v 2 -k 3 --best --strata", dict(v=2, strata=True), (3, INF, False),
+     False),
+    ("-v 3 -m 1 --best", dict(v=3), (1, 1, False), False),
+    ("-n 2 -M 1 --best", dict(mode="n", seed_mms=2), (1, 1, True), False),
+    ("-v 1 -k 1 --best, offRate 13", dict(v=1), (1, INF, False), True))
+
+
+def k10_bytes(work, host, L, out) -> int:
+    """What the best-first machine must read and write: the distinct index
+    items its plain version counted (as k7_bytes prices them), each lane's
+    initial state (pack_init's row, its [ndt, 2L] by-depth rows, its seed)
+    and every output as the kernel writes it (int32)."""
+    B, ndt = host["rows_qp"].shape[:2]
+    nd = host["act"].shape[1]
+    init_w = sum(w for _k, w in bd.init_layout(nd, ndt))
+    return (16 * work["occ_entries"] + 32 * work["bwt_blocks"]
+            + 4 * work["sa_entries"] + 8 * work["ftab_entries"]
+            + B * (4 * init_w + ndt * 2 * L + 8)
+            + 4 * sum(out[k].numel() for k in bd.OUT_KEYS) + 4 * B)
+
+
+def k11_bytes(out) -> int:
+    """What the packing must read and write: each lane's five scalars in
+    (overflow as 1 byte) and out, and each counted hit row once in and
+    once out."""
+    B = out["nhits"].numel()
+    return B * (4 * 4 + 1 + 5 * 4) + 2 * 4 * bd.HIT_W * int(out["nhits"].sum())
+
+
+def best_decoded(al, reads, out, seeds):
+    """The Hits of the lanes K10 finished without overflow, through the
+    aligner's assemble (reads, out, seeds: the lanes' own)."""
+    ok = (~out["overflow"]).nonzero()[:, 0].tolist()
+    h = bd.unpack_harvest(bd.best_pack(out).cpu().numpy(), len(reads))
+    res = al.assemble([reads[b] for b in ok],
+                      {k: v[ok] for k, v in h.items()}, seeds[ok])
+    return [hit for r in res for hit in r.hits]
+
+
+def best_case(name, al, reads, max_steps, device, genome_chars, timed):
+    """K10 and K11 on one batch, each held to its plain version on the
+    card; K10 lane for lane wherever the plain version finished within
+    max_steps, and on the lanes past that budget that K10 finished, to the
+    host best-first engine (the budget rule, align/best_device.py)."""
+    B = len(reads)
+    L = dfs._len_bucket(max(len(r.seq) for r in reads))
+    seeds = fill_seed_caches(reads, 0)
+    seeds_d = torch.from_numpy(seeds.astype(np.int64)).to(device)
+    host = al.hostinit.build(reads, L, seeds)
+    kw = dict(L=L, nd=al.nd, ndt=al.ndt, maxbts=al.maxbts,
+              n_k=al._sink_n(), m_max=min(al.policy.max, bd.INF32),
+              strata=al.strata, qual_lim=al.qual_lim,
+              qual_order=al.qual_order, bt_on=al.bt_on,
+              has_seeded=al.mode == "n")
+    out, transitions = bd.run_machine(al.pair, al.hostinit.cfg, host,
+                                      seeds_d, max_steps=max_steps, **kw)
+    cfg = {k: torch.from_numpy(v.astype(np.int64)).to(device)
+           for k, v in al.hostinit.cfg.items()}
+    pkw = {k: v for k, v in kw.items() if k != "maxbts"}
+    pkw.update(nfrag=al.pair.nfrag, fc=al.pair.ftab_chars)
+
+    def plain(work=None):
+        st = bd.init_state(B, L, al.nd, al.ndt, seeds, host, al.maxbts,
+                           device)
+        return bd.run_machine_plain(al.pair, cfg, st, chunk=max_steps,
+                                    work=work, **pkw)
+    (st, iters), k10_plain_ms = time_once(plain, device)
+    done = st["mode"] == bd.M_DONE
+    ok = done & ~st["overflow"]
+    require(bool((out["overflow"][done] == st["overflow"][done]).all()),
+            f"{name}: K10 and its plain version flag different lanes")
+    err10 = max_abs_err([(out[k][ok], st[k][ok]) for k in bd.OUT_KEYS])
+    require(err10 == 0, f"{name}: K10 disagrees with its plain version on "
+            "lanes the plain version finished")
+    packed = bd.best_pack(out)
+    err11 = max_abs_err([(packed, bd.best_pack_plain(out))])
+    require(err11 == 0, f"{name}: K11 disagrees with its plain version")
+    decoded = best_decoded(al, reads, out, seeds)
+    check_mm_hits(decoded, genome_chars)
+    past = (~done & (out["mode"] == bd.M_DONE) & ~out["overflow"])
+    n_past = int(past.sum())
+    # the host engine is Python and slow: hold the first BEST_HOST_LANES
+    past = past.nonzero()[:BEST_HOST_LANES, 0].tolist()
+    t = time.time()
+    if past:
+        h = bd.unpack_harvest(packed.cpu().numpy(), B)
+        got = al.assemble([reads[b] for b in past],
+                          {k: v[past] for k, v in h.items()}, seeds[past])
+        host_al = al._host_aligner()
+        for b, r in zip(past, got):
+            require(result_key(r) == result_key(host_al.align_read(
+                reads[b])), f"{name}: lane {b} ({reads[b].name!r}): K10's "
+                "result differs from the host engine's")
+    row = dict(reads=B, L=L, nd=al.nd, ndt=al.ndt, dense=al.pair.dense,
+               off_rate=al.pair.fw.off_rate, max_steps=max_steps,
+               plain_iterations=int(iters),
+               kernel_max_transitions=int(transitions),
+               budget_lanes=int((~done).sum()),
+               kernel_budget_lanes=int((out["mode"] != bd.M_DONE).sum()),
+               overflow_lanes=int(out["overflow"].sum()),
+               kernel_past_budget_lanes=n_past,
+               host_checked_lanes=len(past), host_s=time.time() - t,
+               hits=len(decoded),
+               hits_with_mismatches=sum(1 for h in decoded if h.mms),
+               k10_plain_ms=k10_plain_ms, max_abs_err=max(err10, err11))
+    if not timed:
+        return row, None
+    # the work the bound prices, counted by a second plain run (the
+    # count's own cost is kept out of k10_plain_ms)
+    work = {}
+    plain(work)
+    row["work"] = work
+    nbytes10 = k10_bytes(work, host, L, out)
+    nbytes11 = k11_bytes(out)
+    slot = torch.arange(bd.H_MAX, device=device)
+    hits3 = out["hits"].view(B, bd.H_MAX, bd.HIT_W)
+    stats = {
+        "K10": dict(
+            name="K10 best_machine (K1/K5 rank4/lf4pair inlined)",
+            route="cuda", source=BEST_SOURCE,
+            replaces="bowtie_tpu/align/best_device.py:2224 (:638 init)",
+            ms=time_ms(lambda: bd.run_machine(
+                al.pair, al.hostinit.cfg, host, seeds_d, max_steps=max_steps,
+                **kw), device, 5),
+            plain_ms=k10_plain_ms,
+            **bounds(nbytes10, work["rank_codes"], work["walk_steps"],
+                     work["word_codes"],
+                     2 * work["rank_ends"] + 2 * work["walk_steps"]
+                     + work["sa_loads"]),
+            library_ms=None, library=NO_LIBRARY_K10, max_abs_err=err10,
+            lanes=B, rank_ends=work["rank_ends"],
+            sa_loads=work["sa_loads"], bytes=nbytes10, policy=name),
+        "K11": dict(
+            name="K11 best_pack", route="cuda", source=BEST_SOURCE,
+            replaces="bowtie_tpu/align/best_device.py:2264, :2270, :2311",
+            ms=time_ms(lambda: bd.best_pack(out), device, 20),
+            plain_ms=time_once(lambda: bd.best_pack_plain(out), device)[1],
+            **bounds(nbytes11, 0, 0, 0, -(-nbytes11 // SECTOR)),
+            library_ms=time_ms(lambda: hits3[slot < out["nhits"][:, None]],
+                               device, 20),
+            library="hits[slot < nhits] (boolean index)",
+            max_abs_err=err11, rows=int(out["nhits"].sum()),
+            bytes=nbytes11, policy=name),
+    }
+    return row, stats
+
+
+def phase_best(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw):
+    """K10 and K11 against their plain versions on the card under three
+    policies on the dense pair and one on the pair thinned to offRate 13;
+    the first timed."""
+    genome_chars = CHARS[genome].tobytes()
+    reads = n_reads(rng, genome, rep_starts, seg_len, BEST_READS,
+                    os.path.join(work, "best.fq"))
+    thin = (thinned_index(idx), thinned_index(idx_bw))
+    cases, stats = {}, None
+    for i, (name, akw, (k, m, sample), walk) in enumerate(BEST_POLICIES):
+        t = time.time()
+        policy = KPolicy(khits=k, mhits=m, sample_max=sample)
+        al = bd.DeviceBestAligner(*(thin if walk else (idx, idx_bw)), policy,
+                                  compact=walk, device=device, **akw)
+        cases[name], st = best_case(
+            name, al, reads[:THIN_BEST_READS] if walk else reads,
+            THIN_BEST_STEPS if walk else BEST_STEPS, device, genome_chars,
+            timed=i == 0)
+        cases[name]["wall_s"] = time.time() - t
+        stats = stats or st
+    walk = cases[BEST_POLICIES[-1][0]]
+    require(not walk["dense"] and walk["off_rate"] == 13,
+            "the walk case ran on a dense pair")
+    emit({"phase": "best", "cases": cases,
+          "ms": {k: v["ms"] for k, v in stats.items()}})
+    return stats
+
+
+BEST_CLI_READS = 50_000
+BEST_SLICE = 400
+
+
+def check_verbose_mm(path, genome_chars):
+    """Every verbose record's aligned read equals the reference at its
+    offset except at its reported mismatches (offset:ref>read, offsets
+    from the read's 5' end), where the reference holds the reported base.
+    -> records checked."""
+    n = 0
+    with open(path, "rb") as f:
+        for line in f:
+            p = line.rstrip(b"\n").split(b"\t")
+            minus, off, seq = p[1] == b"-", int(p[3]), p[4]
+            ln = len(seq)
+            ref = genome_chars[off:off + ln]
+            mm = {}
+            for d in (p[7].split(b",") if len(p) > 7 and p[7] else []):
+                pos, change = d.split(b":")
+                i = int(pos)
+                mm[ln - 1 - i if minus else i] = change[:1]
+            for i in range(ln):
+                want = mm.get(i, seq[i:i + 1])
+                require(ref[i:i + 1] == want and (
+                    i not in mm or seq[i:i + 1] != want),
+                    f"record {p[0]!r} at {off} does not match the reference "
+                    "at its reported mismatches")
+            n += 1
+    return n
+
+
+def check_sam_md(path, genome_chars):
+    """Every aligned SAM record's SEQ, with the reference bases its MD:Z
+    tag names put in, equals the reference at POS.  -> records checked."""
+    n = 0
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"@"):
+                continue
+            p = line.rstrip(b"\n").split(b"\t")
+            if int(p[1]) & 4:
+                continue
+            seq, pos = bytearray(p[9]), int(p[3]) - 1
+            md = next(t[5:] for t in p[11:] if t.startswith(b"MD:Z:"))
+            i = 0
+            for num, base in re.findall(rb"(\d+)([A-Z]?)", md):
+                i += int(num)
+                if base:
+                    seq[i] = base[0]
+                    i += 1
+            require(bytes(seq) == genome_chars[pos:pos + len(seq)],
+                    f"record {p[0]!r} at {pos} does not match the reference")
+            n += 1
+    return n
+
+
+def phase_cli_best(rng, work, device, base, genome, rep_starts, seg_len,
+                   gpu):
+    """-v 2 -m 1 --best --strata -S and -n 2 --best -k 1 (verbose) through
+    the CLI on the card, each counted from zero and traced, with its
+    host-engine re-runs counted; every hit checked against the genome and
+    the records of the first BEST_SLICE reads against the CPU CLI's."""
+    genome_chars = CHARS[genome].tobytes()
+    reads = os.path.join(work, "best_reads.fq")
+    n_reads(rng, genome, rep_starts, seg_len, BEST_CLI_READS, reads)
+    head = os.path.join(work, "best_head.fq")
+    with open(reads, "rb") as f, open(head, "wb") as g:
+        g.writelines(f.readlines()[:4 * BEST_SLICE])
+    names = {r.name for r in ReadSource([head]).records()}
+    runs, rows = {}, {}
+    real_build = cli.build_aligner
+    for tag, args, sam in (
+            ("-v 2 -m 1 --best --strata -S",
+             ["-v", "2", "-m", "1", "--best", "--strata", "-S"], True),
+            ("-n 2 --best -k 1", ["-n", "2", "--best", "-k", "1"], False)):
+        out = os.path.join(work, "best%d.out" % len(args))
+        built = []
+
+        def build(*a, **k):
+            built.append(real_build(*a, **k))
+            return built[-1]
+        cli.build_aligner = build
+        try:
+            ((wall, err), busy), launches = counted(lambda: profiled(
+                lambda: run_cli(args + ["-x", base, reads, out], device)),
+                device)
+        finally:
+            cli.build_aligner = real_build
+        require(isinstance(built[0], bd.DeviceBestAligner),
+                f"cli {tag} built {type(built[0]).__name__}")
+        require(launches["best_machine"] > 0 and launches["best_pack"] > 0,
+                f"cli {tag} launched {launches}")
+        checked = (check_sam_md if sam else check_verbose_mm)(out,
+                                                              genome_chars)
+        require(checked > 0, f"cli {tag}: no alignments")
+        t = time.time()
+        run_cli(args + ["-x", base, head, out + ".cpu"], torch.device("cpu"))
+        cpu_s = time.time() - t
+        want = records_of(out + ".cpu", names)
+        require(records_of(out, names) == want, f"cli {tag}: card and CPU "
+                f"records of the first {BEST_SLICE} reads differ")
+        rows[tag] = {"wall_s": wall, "reads_per_s": BEST_CLI_READS / wall,
+                     "device_busy_s": busy, "device_busy_share": busy / wall,
+                     "launches": launches, "fallbacks": built[0].fallbacks,
+                     "records_checked": checked,
+                     "cpu_equal_lines": len(want), "cpu_slice_s": cpu_s,
+                     "summary": err.strip().splitlines()}
+        runs["cli " + tag] = launches
+    emit({"phase": "cli_best", "reads": BEST_CLI_READS, "gpu": gpu,
+          "slice_reads": BEST_SLICE, "runs": rows})
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1233,11 +1555,16 @@ def main() -> int:
     stats.update(phase_n(rng, work, device, genome, rep_starts, seg_len,
                          idx, idx_bw))
     runs.update(phase_cli_n(rng, work, device, base, idx, idx_bw, golden,
-                            genome, rep_starts, seg_len, 200_000, gpu))
+                            genome, rep_starts, seg_len, CLI_N_READS, gpu))
+    stats.update(phase_best(rng, work, device, genome, rep_starts, seg_len,
+                            idx, idx_bw))
+    runs.update(phase_cli_best(rng, work, device, base, genome, rep_starts,
+                               seg_len, gpu))
     counter = {"K2": "exact_ranges", "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
-               "K9": "derive_b_jobs"}
+               "K9": "derive_b_jobs", "K10": "best_machine",
+               "K11": "best_pack"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
     for key, entry in stats.items():

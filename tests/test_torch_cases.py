@@ -6,11 +6,11 @@ file and every --al/--un/--max dump, including which files exist — and
 the stderr summary must be byte-identical (@PG aside).
 
 Rows taken: every single-end row (FASTQ in its variants, FASTA, raw, -c,
--F) that uses neither --best nor -M nor -v 3, which go to the best-first
-engine the port has not ported yet.  The reference side runs its host
-engines (BOWTIE_TPU_HOST_ENGINE=1), as the table's own test does, which
-byte-match its device engines (tests/test_*_device.py); rows with -p keep
-its device engines, since -p forks the host engines."""
+-F), the best-first rows (--best, --strata, -M, -v 3) included, which the
+port runs on its best-first machine (align/best_device.py).  The reference
+side runs its host engines (BOWTIE_TPU_HOST_ENGINE=1), as the table's own
+test does, which byte-match its device engines (tests/test_*_device.py);
+rows with -p keep its device engines, since -p forks the host engines."""
 import contextlib
 import gzip
 import io
@@ -27,9 +27,12 @@ from test_simple_cases import (CASES, GENOME, LONG_READS, SE_READS, _expand,
 
 SE_KINDS = {"fq", "fq+", "fa", "raw", "c", "F", "fq64", "fqint", "fqlong",
             "fqcrlf", "fq2", "fqgz"}
-ROWS = [c for c in CASES if c[1] in SE_KINDS
-        and not {"--best", "-M"} & set(c[2])
-        and not ("-v" in c[2] and c[2][c[2].index("-v") + 1] == "3")]
+ROWS = [c for c in CASES if c[1] in SE_KINDS]
+
+
+def _best_first(case_args) -> bool:
+    return bool({"--best", "-M"} & set(case_args)) or (
+        "-v" in case_args and case_args[case_args.index("-v") + 1] == "3")
 
 
 @pytest.fixture(scope="module")
@@ -109,8 +112,9 @@ def test_case_parity(cid, infmt, case_args, env, tmp_path, monkeypatch):
 
 
 def test_rows_cover_the_table():
-    """Every single-end row the port can run is taken: those left out are
-    the best-first rows (--best, -M, -v 3)."""
-    assert len(ROWS) > 70
-    left = [c for c in CASES if c[1] in SE_KINDS and c not in ROWS]
-    assert all({"--best", "-M", "3"} & set(c[2]) for c in left)
+    """Every single-end row is taken, the 18 best-first rows (--best, -M,
+    -v 3) among them; the rows left out are the paired-end ones."""
+    assert len(ROWS) > 90
+    assert sum(_best_first(c[2]) for c in ROWS) == 18
+    left = [c for c in CASES if c not in ROWS]
+    assert left and all(c[1] not in SE_KINDS for c in left)

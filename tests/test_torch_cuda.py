@@ -1,11 +1,12 @@
-"""The CUDA kernels (csrc/exact.cu, csrc/dfs.cu) against their plain
-PyTorch versions, on the card: K2, K3 (walk and dense SA) and K4 must agree
-element for element, also on an index whose SA sample is thinned so that
-most walks pass MAX_WALK and end with ok=False; K6, K7 and K8 (the DFS
-machine) on -v 1 / -v 2 / -n launch-A job tables, dense and walk-left; K9
-(the -n launch-B job table) and K6/K7 on the tables it derives; and the
-CLI on the card (-v 0/1/2, -n, --sanity, --stats) must write what it
-writes on the CPU.
+"""The CUDA kernels (csrc/exact.cu, csrc/dfs.cu, csrc/best.cu) against
+their plain PyTorch versions, on the card: K2, K3 (walk and dense SA) and
+K4 must agree element for element, also on an index whose SA sample is
+thinned so that most walks pass MAX_WALK and end with ok=False; K6, K7 and
+K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
+walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
+derives; K10 and K11 (the best-first machine) under -v and seeded
+policies, dense and walk-left; and the CLI on the card (-v 0/1/2/3, -n,
+--best, -M, --sanity, --stats) must write what it writes on the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one; on the
 card (where JAX, which tests/conftest.py imports, may be absent) run
 
@@ -205,15 +206,78 @@ def test_n_kernels_match_plain(card, tmp_path, n, s, nofw, norc, maq):
     assert kernels.LAUNCHES["dfs_machine"] == 2
 
 
+@pytest.mark.parametrize("kw,pol,dense", [
+    (dict(v=2, strata=True), (3, None, False), True),
+    (dict(v=3), (1, 1, False), False),
+    (dict(v=1, all_hits=True), (None, None, False), True),
+    (dict(mode="n", seed_mms=2, seed_len=20), (1, 1, True), True),
+    (dict(mode="n", seed_mms=3, strata=True, maxbts=2), (2, None, False),
+     False)], ids=["v2_k3_strata", "v3_m1_walk", "v1_a", "n2_M1_l20",
+                   "n3_strata_k2_maxbts2_walk"])
+def test_best_kernels_match_plain(card, tmp_path, kw, pol, dense):
+    """K10 equals its plain version on every lane the plain version
+    finishes without overflow (a lane either flags for overflow is re-run
+    on the host engine), overflow flags alike; K11 equals its plain
+    version on K10's outputs."""
+    from bowtie_tpu_torch.align import best_device as tbd
+    from bowtie_tpu_torch.align.policy import INF, KPolicy
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idx, refs = card
+    k, m, sample = pol
+    policy = KPolicy(INF if k is None else k, INF if m is None else m,
+                     sample_max=sample)
+    reads = [r for r in _n_reads(refs, 600, 13, tmp_path / "r.fq")
+             if 4 <= len(r.seq)]
+    al = tbd.DeviceBestAligner(idx, read_ebwt(BASE + ".rev"), policy,
+                               compact=not dense, device="cuda", **kw)
+    L = 64
+    seeds = fill_seed_caches(reads, 0)
+    host = al.hostinit.build(reads, L, seeds)
+    skw = dict(L=L, nd=al.nd, ndt=al.ndt, maxbts=al.maxbts,
+               n_k=al._sink_n(), m_max=min(policy.max, tbd.INF32),
+               strata=al.strata, qual_lim=al.qual_lim,
+               qual_order=al.qual_order, bt_on=al.bt_on,
+               has_seeded=al.mode == "n", max_steps=60000)
+    kernels.reset_launches()
+    out, _ = tbd.run_machine(al.pair, al.hostinit.cfg, host,
+                             torch.from_numpy(seeds.astype(np.int64)).cuda(),
+                             **skw)
+    st = tbd.init_state(len(reads), L, al.nd, al.ndt, seeds, host,
+                        al.maxbts, "cuda")
+    cfg = {c: torch.from_numpy(v.astype(np.int64)).cuda()
+           for c, v in al.hostinit.cfg.items()}
+    skw.pop("max_steps")
+    skw.pop("maxbts")
+    st, _ = tbd.run_machine_plain(al.pair, cfg, st, chunk=60000,
+                                  nfrag=al.pair.nfrag,
+                                  fc=al.pair.ftab_chars, **skw)
+    assert bool((st["mode"] == tbd.M_DONE).all())
+    assert torch.equal(out["overflow"], st["overflow"])
+    ok = ~st["overflow"]
+    for key in tbd.OUT_KEYS:
+        assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
+    assert int(out["nhits"].sum()) > 0
+    packed = tbd.best_pack(out)
+    assert torch.equal(packed, tbd.best_pack_plain(
+        {key: v.cpu() for key, v in out.items()}).cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["best_machine"] == 1
+    assert kernels.LAUNCHES["best_pack"] == 1
+
+
 @pytest.mark.parametrize("args", [["-v", "0"], ["-v", "0", "-a", "-S"],
                                   ["-v", "1"], ["-v", "2", "-a", "-m", "3",
                                                 "-S"],
                                   [], ["-n", "3", "-l", "20", "-a", "-m",
                                        "3", "-S"],
                                   ["-n", "1", "--nomaqround", "-e", "40",
+                                   "--sanity", "--stats"],
+                                  ["-v", "3", "-k", "2", "--best", "-S"],
+                                  ["-n", "2", "-M", "1", "--best",
                                    "--sanity", "--stats"]],
                          ids=["k1", "a_S", "v1", "v2_a_m3_S", "n2_default",
-                              "n3_l20_a_m3_S", "n1_sanity_stats"])
+                              "n3_l20_a_m3_S", "n1_sanity_stats",
+                              "v3_k2_best_S", "n2_M1_sanity_stats"])
 def test_cli_on_card_matches_cpu(card, tmp_path, args):
     from bowtie_tpu_torch.cli import align as cli
     idx, refs = card

@@ -183,28 +183,32 @@ def test_launcher_reports_unported_mode():
     import sys
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "bin", "bowtie-tpu-torch"),
-         "-v", "3", "-x", GOLD, "-c", "ACGTACGTAC"],
+         "-v", "3", "--interleaved", "x.fq", "-x", GOLD],
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1
-    assert "-v 3 is not yet ported to bowtie_tpu_torch" in proc.stderr
+    assert "paired-end input is not yet ported to bowtie_tpu_torch" in \
+        proc.stderr
 
 
-# (test id, flags, the mode the message names): -v 1/2 and -n run on the
-# DFS machine, but with --best, --strata or -M they go to the best-first
-# engine, which is not ported; --sanity and --stats run with every ported
-# mode and refuse with the rest
+# (test id, flags, the mode the message names): every single-end mode runs
+# (the best-first modes on align/best_device.py); what is refused is
+# paired input in any of its forms, whatever the mode flags with it
+PE = ["-1", "a.fq", "-2", "b.fq"]
 UNPORTED = [
-    ("-n", ["-n", "2", "--best"], "--best"),
-    ("-v 1", ["-v", "1", "--best"], "--best"),
-    ("-v 2", ["-v", "2", "-M", "1"], "-M"),
-    ("-v 3", ["-v", "3"], "-v 3"),
-    ("--best", ["-v", "0", "--best"], "--best"),
-    ("-M", ["-v", "0", "-M", "1"], "-M"),
+    ("-n", ["-n", "2", "--best"] + PE, "paired-end input"),
+    ("-v 1", ["-v", "1", "--best", "--12", "t.tab"], "paired-end input"),
+    ("-v 2", ["-v", "2", "-M", "1", "--interleaved", "i.fq"],
+     "paired-end input"),
+    ("-v 3", ["-v", "3"] + PE, "paired-end input"),
+    ("--best", ["-v", "0", "--best", "-1", "a.fq"], "paired-end input"),
+    ("-M", ["-v", "0", "-M", "1", "-2", "b.fq"], "paired-end input"),
     ("paired-end input", ["-v", "0", "-1", "a.fq", "-2", "b.fq"],
      "paired-end input"),
-    ("--sanity", ["-n", "2", "--sanity", "-M", "1"], "-M"),
-    ("--stats", ["-v", "3", "--stats"], "-v 3"),
-    ("-v 2 --strata", ["-v", "2", "--best", "--strata", "-a"], "--best"),
+    ("--sanity", ["-n", "2", "--sanity", "-M", "1"] + PE,
+     "paired-end input"),
+    ("--stats", ["-v", "3", "--stats", "--12", "t.tab"], "paired-end input"),
+    ("-v 2 --strata", ["-v", "2", "--best", "--strata", "-a"] + PE,
+     "paired-end input"),
 ]
 
 
