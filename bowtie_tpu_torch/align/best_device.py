@@ -56,10 +56,14 @@ two agree, so the CLI's bytes do.  (The reference's run_compacting cuts
 max_steps to a boundary of its chunk schedule; the budget changes which
 lanes fall back, never the output.)
 
-Left out, with the paired-end slice of the port: the reference's record
-mode (_record_range, the `record`/`rec_cap`/`paired` switches) and the
-fused multi-DAG config bases (cfg0f/cfg0o), which only its paired
-recorders use.
+Record mode (K10r, best_device.py:1030-1120), for the paired-end V1
+engine (align/pe_device.py): a found range is appended to the lane's hit
+pool in emission order (_record_range) instead of being chased, until the
+lane's driver is exhausted or `rec_cap` ranges are recorded; one run holds
+lanes of two driver DAGs through the per-lane config bases cfg0f/cfg0o
+(_cfgF/_cfgO, :854-866), which every config read goes through.  Left out,
+with the paired V2 machine (K14): the `paired` branch of _step_cadv and
+the per-outer qlen_o/seed_o registers, constants of a V1 run.
 """
 from __future__ import annotations
 
@@ -651,8 +655,8 @@ def _host_sort_actives(act, act_n, done, found, minc, rng, ca_min):
 #
 # The state is a dict of int64 tensors (overflow is bool), keyed and laid
 # out as the reference's state (bowtie_tpu/align/best_device.py:647
-# _init_state) less its paired-only registers (cfg0f, cfg0o, qlen_o,
-# seed_o, which are constants of a single-end run): per-driver blocks are
+# _init_state) less its paired-V2 registers (qlen_o, seed_o, which are
+# constants of every run here: the lane's qlen and seed): per-driver blocks are
 # flat element-major [B, W*K] (element e of block k at column e*K + k),
 # the pools [B, NBR, *], hits [B, H_MAX*HIT_W].  uint32 values (the RNG
 # states, seeds) are held in int64.  Each _step_* below is the reference
@@ -704,7 +708,12 @@ def init_state(B: int, L: int, nd: int, ndt: int, seeds: torch.Tensor,
     st = dict(
         mode=torch.full((B,), M_MAIN, dtype=torch.int64, device=dev),
         overflow=torch.zeros(B, dtype=torch.bool, device=dev),
-        result=z(B), rng_al=sd.clone(), rng_ca=h("rng_ca") & U32,
+        result=z(B),
+        # per-lane config-group bases of a fused multi-DAG run (zero for
+        # a single DAG; see _cfgF/_cfgO)
+        cfg0f=h("cfg0f") if "cfg0f" in host else z(B),
+        cfg0o=h("cfg0o") if "cfg0o" in host else z(B),
+        rng_al=sd.clone(), rng_ca=h("rng_ca") & U32,
         rng_rs=sd[:, None].repeat(1, ndt), seed=sd.clone(),
         count=z(B), best_stratum=torch.full((B,), 999, dtype=torch.int64,
                                             device=dev),
@@ -822,12 +831,26 @@ def _irrelevant(st, cost, strata: bool):
     return (st["count"] > 0) & ((cost >> 14) > st["best_stratum"])
 
 
+def _cfgF(st, cx, name, idx):
+    """Flat-driver config `name` of each lane's driver idx, read through
+    the lane's config-group base cfg0f (:854): a fused run holds the
+    tables of several driver DAGs one after another."""
+    return cx.cfg[name][idx + st["cfg0f"]]
+
+
+def _cfgO(st, cx, name, idx):
+    """Outer-driver config `name` through the lane's base cfg0o (:863)."""
+    return cx.cfg[name][idx + st["cfg0o"]]
+
+
 class _Ctx:
     """The static configuration of one plain run."""
 
     def __init__(self, pair, cfg, *, nd, ndt, L, nfrag, n_k, m_max, strata,
-                 qual_lim, qual_order, bt_on, fc, has_seeded):
+                 qual_lim, qual_order, bt_on, fc, has_seeded, record=False,
+                 rec_cap=None):
         self.pair, self.cfg = pair, cfg
+        self.record, self.rec_cap = record, rec_cap
         self.nd, self.ndt, self.L, self.nfrag = nd, ndt, L, nfrag
         self.n_k, self.m_max, self.strata = n_k, m_max, strata
         self.qual_lim, self.qual_order, self.bt_on = (qual_lim, qual_order,
@@ -967,9 +990,13 @@ def _sort_generic(m, act, act_n, done2, found2, min2, rng, K):
 # -- aligner-level + outer CostAware steps -----------------------------------
 
 def _step_main(st, cx):
-    """UnpairedAlignerV2 loop head (:1030)."""
+    """UnpairedAlignerV2 loop head (:1030); in record mode a found range
+    goes to _record_range instead of the chase."""
     m = st["mode"] == M_MAIN
     found = st["ca_found"] > 0
+    if cx.record:
+        _record_range(st, cx, m, found)
+        return
     irrf = m & found & _irrelevant(st, st["ls_cost"], cx.strata)
     _w(st, "ca_found", irrf, 0)
     chase = m & found & ~irrf
@@ -984,6 +1011,47 @@ def _step_main(st, cx):
     nf = m & ~found
     ex = nf & ((st["ca_done"] > 0) | _irrelevant(st, st["ca_min"],
                                                  cx.strata))
+    _w(st, "mode", ex, M_DONE)
+    _w(st, "mode", nf & ~ex, M_CADV)
+
+
+def _record_range(st, cx, m, found):
+    """Record mode (:1064): append the found range to the hit pool as
+    [drv, top, bot, cost, stratum, nedits, done, qlen, edit depths (the
+    pad slot before last holds pre_min, the driver's min cost at the last
+    check before this emission), edit chars], keep advancing the driver.
+    The done column is the driver's done-at-emission flag, or 2 once the
+    lane is frozen by rec_cap with its driver not exhausted: the replay
+    then treats the stream as truncated.  The range is never chased."""
+    B = m.shape[0]
+    rec_on = m & found
+    nmms = st["ls_ne"]
+    done_col = st["ca_done"]
+    if cx.rec_cap is not None:
+        frz = (st["nhits"] + 1 >= cx.rec_cap) & (st["ca_done"] == 0)
+        done_col = torch.where(frz, 2, done_col)
+    zpad = torch.zeros((B, MM_SLOTS - E_MAX), dtype=torch.int64,
+                       device=m.device)
+    ed_p = torch.cat([st["ls_ed"], zpad], 1)
+    ed_p = torch.cat([ed_p[:, :MM_SLOTS - 1], st["pre_min"][:, None]], 1)
+    rec = torch.cat([torch.stack(
+        [st["ls_drv"], st["ls_top"], st["ls_bot"], st["ls_cost"],
+         st["ls_strat"], nmms, done_col, st["qlen"]], -1),
+        ed_p, torch.cat([st["ls_ec"], zpad], 1)], -1)
+    over = rec_on & ((st["nhits"] >= H_MAX) | (nmms > MM_SLOTS))
+    st["overflow"] = st["overflow"] | over
+    _w(st, "mode", over, M_DONE)
+    do_store = rec_on & ~over
+    hm = _oh(st["nhits"], H_MAX) & do_store[:, None]
+    st["hits"] = torch.where(hm.repeat_interleave(HIT_W, 1),
+                             rec.repeat(1, H_MAX), st["hits"])
+    _w(st, "nhits", do_store, st["nhits"] + 1)
+    if cx.rec_cap is not None:
+        _w(st, "mode", do_store & (st["nhits"] >= cx.rec_cap), M_DONE)
+    _w(st, "ca_found", rec_on, 0)
+    nf = m & ~found
+    _w(st, "pre_min", nf, st["ca_min"])
+    ex = nf & (st["ca_done"] > 0)
     _w(st, "mode", ex, M_DONE)
     _w(st, "mode", nf & ~ex, M_CADV)
 
@@ -1023,9 +1091,9 @@ def _step_oadv(st, cx):
     """Dispatch one outer-driver advance (:1180)."""
     m = st["mode"] == M_OADV
     cur_o = st["cur_o"]
-    kind = cx.cfg["o_kind"][cur_o]
+    kind = _cfgO(st, cx, "o_kind", cur_o)
     pl = m & (kind == 0) if cx.has_seeded else m
-    f0 = cx.cfg["o_flat0"][cur_o]
+    f0 = _cfgO(st, cx, "o_flat0", cur_o)
     _w(st, "cur", pl, f0)
     _w(st, "phase", pl, PH_OUTER)
     _load_cur_rows(st, pl, st["cur"], cx.L)
@@ -1096,9 +1164,9 @@ def _step_ext(st, cx):
     m = st["mode"] == M_EXT
     B, L = m.shape[0], cx.L
     cur = st["cur"]
-    efw = cx.cfg["ebwt_fw"][cur]
-    hh = cx.cfg["hh"][cur]
-    exacts = cx.cfg["exacts"][cur]
+    efw = _cfgF(st, cx, "ebwt_fw", cur)
+    hh = _cfgF(st, cx, "hh", cur)
+    exacts = _cfgF(st, cx, "exacts", cur)
     d5, d3 = st["d5_cur"], st["d3_cur"]
     fs, _ = _front_select(st, cur)
     fcost, fham, frd, flen, ftop, fbot, fne, fd0 = (
@@ -1215,7 +1283,7 @@ def _step_spp(st, cx):
     m = st["mode"] == M_SPP
     B, L = m.shape[0], cx.L
     cur = st["cur"]
-    efw = cx.cfg["ebwt_fw"][cur]
+    efw = _cfgF(st, cx, "ebwt_fw", cur)
     d3 = st["d3_cur"]
     fs, nonempty = _front_select(st, cur)
     pm_empty = m & ~nonempty
@@ -1369,8 +1437,8 @@ def _step_odend(st, cx):
     """One outer-driver advance finished (:1624)."""
     m = st["mode"] == M_ODEND
     cur_o = st["cur_o"]
-    kind = cx.cfg["o_kind"][cur_o]
-    f0 = cx.cfg["o_flat0"][cur_o]
+    kind = _cfgO(st, cx, "o_kind", cur_o)
+    f0 = _cfgO(st, cx, "o_flat0", cur_o)
     pl = m & (kind == 0)
     _dw(st, "od_done", pl, cur_o, _sel(st["drv_done"], f0))
     _dw(st, "od_min", pl, cur_o, _sel(st["drv_min"], f0))
@@ -1399,10 +1467,10 @@ def _step_cpost(st, cx):
     _copy_outer_range(st, pf, "ls_", cur_o)
     _w(st, "ca_found", pf, 1)
     _dw(st, "od_found", pf, cur_o, 0)
-    o_fw = cx.cfg["o_fw"]
-    r_fw = o_fw[cur_o]
+    r_fw = _cfgO(st, cx, "o_fw", cur_o)
     ii = _iota(nd, m.device)
-    cand = ((ii >= 1) & (o_fw[None, :] != r_fw[:, None])
+    cfg_fw_row = cx.cfg["o_fw"][st["cfg0o"][:, None] + ii]
+    cand = ((ii >= 1) & (cfg_fw_row != r_fw[:, None])
             & (ii < st["act_n"][:, None]))
     has_i = cand.any(1)
     i_star = cand.long().argmax(1)
@@ -1471,7 +1539,7 @@ def _step_sd(st, cx):
     """SeededDriver.advance entry (:1750)."""
     m = st["mode"] == M_SD
     cur_o = st["cur_o"]
-    gen = cx.cfg["o_flat0"][cur_o]
+    gen = _cfgO(st, cx, "o_flat0", cur_o)
     gdone = _sel(st["drv_done"], gen) > 0
     gfound = _sel(st["drv_found"], gen) > 0
     fdone = _sel(st["ic_done"], cur_o) > 0
@@ -1515,7 +1583,7 @@ def _step_sdgen(st, cx):
     B, L, fc = m.shape[0], cx.L, cx.fc
     dev = m.device
     cur_o = st["cur_o"]
-    gen = cx.cfg["o_flat0"][cur_o]
+    gen = _cfgO(st, cx, "o_flat0", cur_o)
     gfound = m & (_sel(st["drv_found"], gen) > 0)
     srr = _dsel2(st, "rr", gen)
     scost, sne = srr[:, 2], srr[:, 4]
@@ -1523,7 +1591,7 @@ def _step_sdgen(st, cx):
     sec = _dsel2(st, "rr_ec", gen)
     _dw(st, "drv_found", gfound, gen, 0)
 
-    exb = cx.cfg["o_exbase"][cur_o]
+    exb = _cfgO(st, cx, "o_exbase", cur_o)
     slot = _sel(st["ex_next"], cur_o)
     over = gfound & ((slot >= PEX) | (sne > 3))
     st["overflow"] = st["overflow"] | over
@@ -1558,7 +1626,7 @@ def _step_sdgen(st, cx):
     wsh = (2 * torch.arange(fc, device=dev))[None, :]
     qf = torch.where(qd_e[:, :fc] > 3, 0, qd_e[:, :fc])
     foff = (qf << wsh).sum(1)
-    efw_e = cx.cfg["ebwt_fw"][fl]
+    efw_e = _cfgF(st, cx, "ebwt_fw", fl)
     ft = cx.by_index(efw_e, lambda fm: u32(fm.ftab_hi[torch.where(
         ok, foff, 0)]))
     fb = cx.by_index(efw_e, lambda fm: u32(fm.ftab_lo[torch.where(
@@ -1638,7 +1706,7 @@ def _step_sdfull(st, cx):
     """SeededDriver.advance do_full tail (:1966)."""
     m = st["mode"] == M_SDFULL
     cur_o = st["cur_o"]
-    gen = cx.cfg["o_flat0"][cur_o]
+    gen = _cfgO(st, cx, "o_flat0", cur_o)
     ff = m & (_sel(st["ic_found"], cur_o) > 0)
     _dw(st, "od_found", ff, cur_o, 1)
     _dw(st, "ic_found", ff, cur_o, 0)
@@ -1711,7 +1779,7 @@ def _step_chase(st, cx):
     """One RangeChaser row: resolve + joinedToTextOff + sink (:2056)."""
     m = st["mode"] == M_CHASE
     pair = cx.pair
-    efw = cx.cfg["o_chase_efw"][st["ls_drv"]]
+    efw = _cfgO(st, cx, "o_chase_efw", st["ls_drv"])
     spread = st["ls_bot"] - st["ls_top"]
     ri = st["ch_r"] + st["ch_k"]
     ri = torch.where(ri >= st["ls_bot"], ri - spread, ri)
@@ -1783,7 +1851,7 @@ def _step_chase(st, cx):
     _w(st, "result", maxed, 2)
     _w(st, "mode", maxed, M_DONE)
     stored = hit & ~maxed
-    fwflag = cx.cfg["o_fw"][st["ls_drv"]]
+    fwflag = _cfgO(st, cx, "o_fw", st["ls_drv"])
     nmms = st["ls_ne"]
     pad = torch.zeros((off.shape[0], MM_SLOTS - E_MAX), dtype=torch.int64,
                       device=off.device)
@@ -1850,7 +1918,7 @@ def _step_plain(st, cx):
             fn(st, cx)
     if cnts[M_SORT]:
         _step_sort(st, cx)
-    if cnts[M_CHASE]:
+    if cnts[M_CHASE] and not cx.record:
         _step_chase(st, cx)
 
 
@@ -1859,9 +1927,11 @@ def run_machine_plain(pair, cfg: dict, st: dict, *, chunk: int,
     """K10's plain version: lockstep iterations of the machine
     (bowtie_tpu/align/best_device.py:2224 run_chunk) over the state `st`
     (init_state) until every lane is M_DONE or `chunk` iterations have
-    run.  cfg: the driver config arrays (HostInit.cfg) as int64 tensors on
-    the state's device; kw: nd, ndt, L, nfrag, n_k, m_max, strata,
-    qual_lim, qual_order, bt_on, fc, has_seeded, as run_chunk takes them.
+    run.  cfg: the driver config arrays (HostInit.cfg, or several DAGs'
+    tables concatenated, each lane addressing its own through cfg0f/cfg0o)
+    as int64 tensors on the state's device; kw: nd, ndt, L, nfrag, n_k,
+    m_max, strata, qual_lim, qual_order, bt_on, fc, has_seeded, record,
+    rec_cap, as run_chunk takes them.
     -> (st, iterations).  If `work` is given (a dict), the rank work, walk
     steps and SA loads the run needs are added to its WORK_KEYS, and the
     distinct items it reads to the keys of TOUCHED, for bounds."""
@@ -1888,7 +1958,10 @@ def run_machine_plain(pair, cfg: dict, st: dict, *, chunk: int,
 
 OUT_KEYS = ("result", "overflow", "count", "best_stratum", "nhits", "hits",
             "mode")
-ND_MAX, NDT_MAX = 8, 24          # csrc/best.cu's bounds on nd and ndt
+# csrc/best.cu's bounds on the config tables (outer, flat drivers): the
+# largest fused table, the -n 3 (and -v 3) fw-DAG + rc-DAG of the paired
+# recorder, is 2 x 4 outer and 2 x 12 flat drivers
+ND_MAX, NDT_MAX = 8, 24
 STEP_SUBSTEPS = 18               # sub-steps of one lockstep iteration
 CFG_F = ("ebwt_fw", "fw", "exacts", "hh")
 CFG_O = ("o_kind", "o_flat0", "o_exbase", "o_fw", "o_chase_efw")
@@ -1903,15 +1976,17 @@ def init_layout(nd: int, ndt: int) -> list:
                                   "dd3")]
             + [("rr", ndt * 5)]
             + [(k, nd) for k in ("od_done", "od_found", "od_min", "act")]
-            + [(k, 1) for k in ("act_n", "rng_ca", "ca_min", "qlen")])
+            + [(k, 1) for k in ("act_n", "rng_ca", "ca_min", "qlen", "cfg0f",
+                                "cfg0o")])
 
 
 def pack_init(host: dict, nd: int, ndt: int) -> np.ndarray:
     """HostInit.build's arrays as one int32 row per lane ([B, NI], uint32
-    values as their bit patterns), laid out by init_layout."""
+    values as their bit patterns), laid out by init_layout; the config
+    bases cfg0f/cfg0o are zero unless `host` gives them."""
     B = len(host["qlen"])
-    cols = [np.asarray(host[k]).astype(np.int64).reshape(B, w)
-            for k, w in init_layout(nd, ndt)]
+    cols = [np.asarray(host[k] if k in host else np.zeros(B))
+            .astype(np.int64).reshape(B, w) for k, w in init_layout(nd, ndt)]
     return np.ascontiguousarray(
         (np.concatenate(cols, 1) & U32).astype(np.uint32).view(np.int32))
 
@@ -1927,8 +2002,8 @@ class BestArgs(ctypes.Structure):
                  ("dense", _I), ("B", _I), ("L", _I), ("nd", _I),
                  ("ndt", _I), ("n_k", _I), ("m_max", _I), ("strata", _I),
                  ("qual_lim", _I), ("qual_order", _I), ("bt_on", _I),
-                 ("has_seeded", _I), ("maxbts", _I),
-                 ("max_transitions", ctypes.c_int64)]
+                 ("has_seeded", _I), ("maxbts", _I), ("record", _I),
+                 ("rec_cap", _I), ("max_transitions", ctypes.c_int64)]
                 + [("cfg_" + k, _I * NDT_MAX) for k in CFG_F]
                 + [("cfg_" + k, _I * ND_MAX) for k in CFG_O]
                 + [(k, _P) for k in ("init", "rows_qp", "seeds", "ptb",
@@ -1940,10 +2015,14 @@ class BestArgs(ctypes.Structure):
 def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
                 L: int, nd: int, ndt: int, maxbts: int, n_k: int,
                 m_max: int, strata: bool, qual_lim: int, qual_order: bool,
-                bt_on: bool, has_seeded: bool, max_steps: int):
+                bt_on: bool, has_seeded: bool, max_steps: int,
+                record: bool = False, rec_cap: int | None = None):
     """K10: run every lane of the batch to M_DONE.  cfg: HostInit.cfg
-    (numpy); host: HostInit.build's arrays for these lanes (numpy); seeds:
-    int64 [B] per-read seeds (uint32 values) on the pair's device.
+    (numpy), or several DAGs' tables concatenated, which host's
+    cfg0f/cfg0o columns address per lane; host: HostInit.build's arrays
+    for these lanes (numpy); seeds: int64 [B] per-read seeds (uint32
+    values) on the pair's device.  record/rec_cap: K10r, the record mode
+    (module docstring), whose launches count under "best_record".
     -> (outputs by OUT_KEYS, int32/bool [B] and hits [B, H_MAX*HIT_W];
     overflow includes the lanes still running at the budget; the most
     iterations (plain) or transitions (kernel) any lane took).
@@ -1956,7 +2035,8 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
     B = seeds.shape[0]
     kw = dict(nd=nd, ndt=ndt, L=L, nfrag=pair.nfrag, n_k=n_k, m_max=m_max,
               strata=strata, qual_lim=qual_lim, qual_order=qual_order,
-              bt_on=bt_on, fc=pair.ftab_chars, has_seeded=has_seeded)
+              bt_on=bt_on, fc=pair.ftab_chars, has_seeded=has_seeded,
+              record=record, rec_cap=rec_cap)
     if kernels.all_on_cpu(seeds, device=dev):
         st = init_state(B, L, nd, ndt, seeds.numpy(), host, maxbts, dev)
         cfg_t = {k: torch.from_numpy(np.asarray(v).astype(np.int64))
@@ -1975,9 +2055,10 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
         return out, torch.tensor(it)
     kernels.check(seeds, "seeds", torch.int64, 1, dev)
     kernels.check(pair.rstarts, "rstarts", torch.int64, 2, dev)
-    if nd > ND_MAX or ndt > NDT_MAX:
-        raise ValueError(f"{nd} outer / {ndt} flat drivers exceed the "
-                         f"kernel's {ND_MAX} / {NDT_MAX}")
+    nco, ncf = len(cfg["o_kind"]), len(cfg["ebwt_fw"])
+    if nco > ND_MAX or ncf > NDT_MAX:
+        raise ValueError(f"{nco} outer / {ncf} flat driver configs exceed "
+                         f"the kernel's {ND_MAX} / {NDT_MAX}")
     if host["rows_qp"].shape != (B, ndt, 2 * L):
         raise ValueError("host rows_qp and the batch disagree on shapes")
     init = torch.from_numpy(pack_init(host, nd, ndt)).to(dev)
@@ -1995,18 +2076,21 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
             length=pair.length, dense=int(pair.dense), B=B, L=L, nd=nd,
             ndt=ndt, n_k=n_k, m_max=m_max, strata=int(strata),
             qual_lim=qual_lim, qual_order=int(qual_order), bt_on=int(bt_on),
-            has_seeded=int(has_seeded), maxbts=maxbts,
+            has_seeded=int(has_seeded), maxbts=maxbts, record=int(record),
+            rec_cap=-1 if rec_cap is None else rec_cap,
             max_transitions=STEP_SUBSTEPS * max_steps,
             init=init.data_ptr(), rows_qp=rows_qp.data_ptr(),
             seeds=seeds.data_ptr(), ptb=ptb.data_ptr(),
             meta=meta.data_ptr(),
             **{k: v.data_ptr() for k, v in out.items()})
         for k in CFG_F:
-            getattr(a, "cfg_" + k)[:ndt] = [int(x) for x in cfg[k]]
+            getattr(a, "cfg_" + k)[:ncf] = [int(x) for x in cfg[k]]
         for k in CFG_O:
-            getattr(a, "cfg_" + k)[:nd] = [int(x) for x in cfg[k]]
+            getattr(a, "cfg_" + k)[:nco] = [int(x) for x in cfg[k]]
         _check_layout(nd, ndt)
-        kernels.launch("best_machine", "bt_best_machine", ctypes.byref(a))
+        # K10r (record mode) counts apart from K10
+        kernels.launch("best_record" if record else "best_machine",
+                       "bt_best_machine", ctypes.byref(a))
     steps = out.pop("steps")
     out["overflow"] = out["overflow"] != 0
     return out, (steps.max() if B else torch.tensor(0)).long()

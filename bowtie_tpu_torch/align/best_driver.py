@@ -7,12 +7,10 @@
 - BestSink variants     <-> NGood / NBestFirstStrat / All sinks (hit.h)
 - UnpairedBestAligner   <-> UnpairedAlignerV2 (aligner.h:381)
 
-A copy of bowtie_tpu/align/best_driver.py, single-end part: the paired
-engines' members of CostAwareDriver (set_query_paired, remove_mate,
-_mate_eliminated, the `paired` flag and the `seed_read` override) wait
-for the paired-end slice of the port.  In a single-end DAG every driver
-serves mate 1, so the reference's _mate_eliminated is always False and
-its tests in advance() drop out.
+A copy of bowtie_tpu/align/best_driver.py.  The paired engines
+(align/best_paired.py) use CostAwareDriver's paired members:
+set_query_paired, remove_mate, _mate_eliminated, the `paired` flag and
+the `seed_read` override.
 """
 from __future__ import annotations
 
@@ -143,6 +141,12 @@ class CostAwareDriver:
         self.done = False
         self.found_range = False
         self.min_cost = 0
+        self.paired = (any(d.mate1() for d in drivers) and
+                       any(not d.mate1() for d in drivers))
+
+    # Optional override: paired mode seeds every CostAware RNG with
+    # mate1's seed (range_source.h:2084: rand_.init(bufa().seed))
+    seed_read = None
 
     def set_query(self, read, seed_range=None):
         self.done = False
@@ -150,7 +154,8 @@ class CostAwareDriver:
         self.last_range = None
         self.delayed_range = None
         self.read = read
-        self.rand = BtRandom(int(read.seed(self.global_seed)))
+        sr = self.seed_read if self.seed_read is not None else read
+        self.rand = BtRandom(int(sr.seed(self.global_seed)))
         if not self.rss:
             return
         for d in self.rss:
@@ -168,12 +173,49 @@ class CostAwareDriver:
         d.set_query(self.read, seed_range)
         self.rss.append(d)
         self.active.append(d)
+        self.paired = (any(x.mate1() for x in self.rss) and
+                       any(not x.mate1() for x in self.rss))
         self.min_cost = 0
         self._sort_actives()
 
     def clear_sources(self):
         self.rss = []
         self.active = []
+        self.paired = False
+
+    def set_query_paired(self, rd1, rd2):
+        """Paired set_query: each driver gets its own mate's read
+        (PairedBWAlignerV2's single merged driver); the tie-break RNG
+        seeds from mate1 (range_source.h:2084)."""
+        self.done = False
+        self.found_range = False
+        self.last_range = None
+        self.delayed_range = None
+        self.read = rd1
+        self.rand = BtRandom(int(rd1.seed(self.global_seed)))
+        for d in self.rss:
+            d.set_query(rd1 if d.mate1() else rd2, None)
+        self.active = list(self.rss)
+        self.paired = (any(d.mate1() for d in self.rss) and
+                       any(not d.mate1() for d in self.rss))
+        self.min_cost = 0
+        self._sort_actives()
+
+    def remove_mate(self, m: int):
+        """CostAware removeMate (range_source.h:2233): mark every
+        active driver of mate m done, then re-sort."""
+        qmate1 = m == 1
+        for d in self.active:
+            if d.mate1() == qmate1:
+                d.done = True
+        self._sort_actives()
+
+    def _mate_eliminated(self):
+        if not self.paired:
+            return False
+        m1 = any(not d.done for d in self.active if d.mate1())
+        m2 = any(not d.done for d in self.active if not d.mate1())
+        return not m1 or not m2
 
     def _sort_actives(self):
         """Selection sort with random tie swaps (range_source.h:2367+),
@@ -257,7 +299,8 @@ class CostAwareDriver:
             else:
                 self.done = True
             return
-        if not self.active:
+        if self._mate_eliminated() or not self.active:
+            self.active = []
             self.done = True
             return
         p = self.active[0]
@@ -270,7 +313,8 @@ class CostAwareDriver:
             p.found_range = False
         if p.done or precost != p.min_cost or needs_sort:
             self._sort_actives()
-            if not self.active:
+            if self._mate_eliminated() or not self.active:
+                self.active = []
                 self.done = self.delayed_range is None
 
     def range(self) -> FoundRange:

@@ -1,9 +1,9 @@
 """Stateful-aligner driver DAGs per alignment mode (aligner_0mm.h,
 aligner_1mm.h, aligner_23mm.h factories).
 
-A copy of bowtie_tpu/align/best_factories.py, single-end part: the
-paired factories (_pe_do_matrix, make_paired_best_aligner,
-make_paired_best_aligner_v2) wait for the paired-end slice of the port.
+A copy of bowtie_tpu/align/best_factories.py: the single-end factories
+and the paired ones (_pe_do_matrix, make_paired_best_aligner for V1,
+make_paired_best_aligner_v2 for V2).
 """
 from __future__ import annotations
 
@@ -225,6 +225,104 @@ def seeded_best_driver_factory(g_fw: GoldenFM, g_bw: GoldenFM,
     return make
 
 
+def _pe_do_matrix(nofw, norc, fw1, fw2):
+    """--nofw/--norc gate PAIR orientations, mapped per mate through
+    its --ff/--fr/--rf orientation (PairedSeedAlignerFactory,
+    aligner_seed_mm.h:676-691): --nofw kills each mate's driver for
+    the strand it uses in the fw-pair orientation; --norc the other.
+    Keyed by (is_mate1, fw)."""
+    do = {(m1, fw): True for m1 in (True, False) for fw in (True, False)}
+    if nofw:
+        do[(True, fw1)] = False
+        do[(False, fw2)] = False
+    if norc:
+        do[(True, not fw1)] = False
+        do[(False, not fw2)] = False
+    return do
+
+
+def make_paired_best_aligner(g_fw, g_bw, refs, policy, mode="n", v=0,
+                             seed_mms=2, seed_len=28, qual_cutoff=70,
+                             fw1=True, fw2=False, min_insert=0,
+                             max_insert=250, pairtries=100,
+                             mixed_thresh=4, sym_ceiling=INF32,
+                             nofw=False, norc=False, maq=True,
+                             better=False, global_seed=0, maxbts=800):
+    """PairedBWAlignerV1 wiring (Paired*AlignerV1Factory): four
+    per-(mate,strand) cost-aware drivers + a RefAligner for rescue."""
+    from .best_paired import (PairedBestAligner, PairedBestSink,
+                              RefAlignerPy)
+    qual_order = not better
+    # ONE backtrack-ceiling cell for the whole pair, shared by every
+    # (mate, strand) group and reset per pair (aligner_seed_mm.h:665,
+    # aligner.h:758)
+    shared_bt = [maxbts] if (mode == "n" and seed_mms >= 2) else None
+
+    def strand_factory(fw):
+        if mode == "n":
+            return seeded_best_driver_factory(
+                g_fw, g_bw, seed_mms, seed_len, qual_cutoff,
+                nofw=not fw, norc=fw, strand_fix=True, maq=maq,
+                qual_order=qual_order, global_seed=global_seed,
+                maxbts=maxbts, bt_cell=shared_bt)
+        if v == 0:
+            return exact_best_driver_factory(
+                g_fw, not fw, fw, True, maq, qual_order, global_seed)
+        if v == 1:
+            return mm1_best_driver_factory(
+                g_fw, g_bw, not fw, fw, True, maq, qual_order,
+                global_seed)
+        return mm23_best_driver_factory(
+            g_fw, g_bw, v == 2, not fw, fw, True, maq, qual_order,
+            global_seed, maxbts)
+
+    do = _pe_do_matrix(nofw, norc, fw1, fw2)
+    built = {}   # (mate1, fw) -> CostAwareDriver, reused across pairs
+
+    def driver_factory(rd1, rd2):
+        """The reference constructs one aligner object graph per
+        thread and re-points it at each read via setQuery
+        (aligner.h:45-84); building the graphs per pair costs ~25% of
+        host PE time, so they are cached and reset here too."""
+        if shared_bt is not None:
+            shared_bt[0] = maxbts      # *btCnt_ = maxBts_ per pair
+        out = []
+        for mate_read, mate1 in ((rd1, True), (rd2, False)):
+            for fw in (True, False):
+                ca = built.get((mate1, fw))
+                if ca is None:
+                    if do[(mate1, fw)]:
+                        ca = strand_factory(fw)(mate_read)
+                    else:
+                        # banned by --nofw/--norc: the reference
+                        # leaves the per-(mate,strand) source vector
+                        # empty (aligner_seed_mm.h:676-691) — a
+                        # CostAware driver that is done on first
+                        # advance with no RNG draws
+                        from .best_driver import CostAwareDriver
+                        ca = CostAwareDriver([], strand_fix=True,
+                                             global_seed=global_seed)
+                    for d in ca.rss:
+                        d.mate1_flag = mate1
+                    built[(mate1, fw)] = ca
+                ca.seed_read = rd1
+                ca.set_query(mate_read)
+                out.append(ca)
+        return out
+
+    if mode == "n":
+        ra = RefAlignerPy(seed_mms=seed_mms, seed_len=seed_len,
+                          qual_max=qual_cutoff, maq_round=maq)
+    else:
+        ra = RefAlignerPy(v=v)
+    sink = PairedBestSink(policy, global_seed)
+    return PairedBestAligner(
+        driver_factory, g_fw, g_bw, refs, ra, sink,
+        min_insert=min_insert, max_insert=max_insert, fw1=fw1, fw2=fw2,
+        mixed_thresh=mixed_thresh, mixed_attempt_lim=pairtries,
+        sym_ceiling=sym_ceiling, global_seed=global_seed)
+
+
 def make_seeded_best_aligner(g_fw, g_bw, seed_mms, seed_len, qual_cutoff,
                              policy, strata, all_hits, nofw=False,
                              norc=False, maq=True, better=False,
@@ -255,3 +353,88 @@ def make_best_aligner(g_fw: GoldenFM, g_bw: GoldenFM | None, v: int,
     chaser = RangeChaser(g_fw, g_bw)
     sink = BestSink(policy, strata, all_hits, global_seed)
     return UnpairedBestAligner(fac, chaser, sink, global_seed)
+
+
+def make_paired_best_aligner_v2(g_fw, g_bw, refs, policy, mode="n",
+                                v=0, seed_mms=2, seed_len=28,
+                                qual_cutoff=70, fw1=True, fw2=False,
+                                min_insert=0, max_insert=250,
+                                pairtries=100, nofw=False, norc=False,
+                                maq=True, better=False, report_se=False,
+                                best_sink=True, global_seed=0,
+                                maxbts=800, order=None):
+    """PairedBWAlignerV2 wiring (Paired*AlignerV1Factory with v1_
+    false, aligner_0mm.h:323-339 etc.): ONE cost-merged driver over all
+    (mate, strand) source groups; used for --best PE, --pev2 and
+    --reportse.
+
+    `order` is the drVec construction order of (mate1, fw) groups —
+    (1,Fw),(1,Rc),(2,Fw),(2,Rc) for the -v exact factory;
+    (1,Fw),(2,Fw),(1,Rc),(2,Rc) for the seeded factory (all four
+    vectors alias dr1FwVec, aligner_seed_mm.h:700-703)."""
+    from .best_driver import CostAwareDriver
+    from .best_paired import (PairedBestAlignerV2, PairedBestSinkV2,
+                              RefAlignerPy)
+    qual_order = not better
+    # one shared, per-pair-reset backtrack cell (aligner_seed_mm.h:665)
+    shared_bt = [maxbts] if (mode == "n" and seed_mms >= 2) else None
+
+    def strand_factory(fw):
+        if mode == "n":
+            return seeded_best_driver_factory(
+                g_fw, g_bw, seed_mms, seed_len, qual_cutoff,
+                nofw=not fw, norc=fw, strand_fix=True, maq=maq,
+                qual_order=qual_order, global_seed=global_seed,
+                maxbts=maxbts, bt_cell=shared_bt)
+        if v == 0:
+            return exact_best_driver_factory(
+                g_fw, not fw, fw, True, maq, qual_order, global_seed)
+        if v == 1:
+            return mm1_best_driver_factory(
+                g_fw, g_bw, not fw, fw, True, maq, qual_order,
+                global_seed)
+        return mm23_best_driver_factory(
+            g_fw, g_bw, v == 2, not fw, fw, True, maq, qual_order,
+            global_seed, maxbts)
+
+    if order is None:
+        order = ([(True, True), (True, False), (False, True),
+                  (False, False)] if mode != "n" else
+                 [(True, True), (False, True), (True, False),
+                  (False, False)])
+
+    do = _pe_do_matrix(nofw, norc, fw1, fw2)
+    cache = []   # the merged driver, reused across pairs (setQuery
+                 # re-points it, aligner.h:45-84)
+
+    def driver_factory(rd1, rd2):
+        if not cache:
+            drs = []
+            for mate1, fw in order:
+                if not do[(mate1, fw)]:
+                    continue
+                ca = strand_factory(fw)(rd1 if mate1 else rd2)
+                for d in ca.rss:
+                    d.mate1_flag = mate1
+                    if hasattr(d, "rs"):    # plain BestDriver: the
+                        d.rs.mate1 = mate1  # range's mate1 field
+                drs.extend(ca.rss)
+            cache.append(CostAwareDriver(drs, strand_fix=True,
+                                         global_seed=global_seed))
+        merged = cache[0]
+        if shared_bt is not None:
+            shared_bt[0] = maxbts      # *btCnt_ = maxBts_ per pair
+        merged.set_query_paired(rd1, rd2)
+        return merged
+
+    if mode == "n":
+        ra = RefAlignerPy(seed_mms=seed_mms, seed_len=seed_len,
+                          qual_max=qual_cutoff, maq_round=maq)
+    else:
+        ra = RefAlignerPy(v=v)
+    sink = PairedBestSinkV2(policy, global_seed, best=best_sink)
+    return PairedBestAlignerV2(
+        driver_factory, g_fw, g_bw, refs, ra, sink,
+        se_policy=(policy if report_se else None),
+        min_insert=min_insert, max_insert=max_insert, fw1=fw1, fw2=fw2,
+        mixed_attempt_lim=pairtries, global_seed=global_seed)

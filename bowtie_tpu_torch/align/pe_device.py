@@ -1,0 +1,610 @@
+"""Paired-end alignment with anchor streams recorded on the card
+(PairedBWAlignerV1, aligner.h:606-1480).
+
+A port of bowtie_tpu/align/pe_device.py without its device interleave.
+The V1 engine interleaves four per-(mate, strand) best-first anchor
+drivers with reference-window mate rescue.  The driver streams do not
+interact (the interleave only decides which ranges get chased and rescued,
+and when to stop), so the costly part, the branch-and-bound search,
+batches:
+
+1. RECORD (card): every (pair, mate, orientation) is one lane of the
+   best-first machine in record mode, K10r (align/best_device.py
+   run_machine with record=True): the lane appends its driver's ranges to
+   its hit pool in emission order, with the driver's done-at-emission
+   flag, until the driver is exhausted or rec_cap ranges are recorded.
+   The fw-DAG and the rc-DAG lanes run in ONE launch: the config tables
+   are the two DAGs' tables one after another, and each lane reads its own
+   through its cfg0f/cfg0o bases.  K11 (best_pack) packs the recorded rows
+   for one download.
+2. REPLAY (host): PairedBestAligner (align/best_paired.py) runs unchanged
+   over ReplayDrivers that pop the recorded streams.  The interleave, the
+   chase's RNG draws, the rescue scans and the sink calls happen as on the
+   host engine, so the output is byte-identical.  The rescue windows of all
+   live pairs are scored together, one wave at a time (_score_batch).
+
+A pair whose interleave outruns a capped stream re-records its four
+streams uncapped and replays again (round 2; `escalations` counts them).
+A pair with an overflowing lane (the hit pool, the mismatch slots, the
+step budget) or a mate the machine does not take (under 4 or over 255
+bases) re-runs on the live host drivers (`fallbacks` counts them), as the
+reference does.
+
+rec_cap is 12, or None (uncapped) when the policy needs every row
+(-k > 1, -a, -m, -M), as in the reference with its interleave switched
+off.  Left out, with the device interleave (K12, K13; ROADMAP queue 1
+item 3): the rec_cap = 1 policy, the phase-0 exact synthesis on K12
+(SynthStream, _synth_streams, _exact_fm), the _ilv_* members, REC_W and
+dryrun_pe.  UnrecordedDriver is left out too: it stands for a stream
+slot a recording skipped, and every recording here (and the reference's
+after its phased design went) records all four.
+"""
+from __future__ import annotations
+
+import gc
+import multiprocessing as mp
+import os
+
+import numpy as np
+import torch
+
+from .best import FoundRange
+from .best_device import (CFG_F, CFG_O, H_MAX, HIT_W, INF32, MM_SLOTS,
+                          HostInit, best_pack, run_machine,
+                          seeded_mode_configs, unpack_harvest,
+                          v_mode_configs)
+from .best_factories import make_paired_best_aligner
+from .dfs_device import _len_bucket, build_fmpair
+from .golden import GoldenFM
+from .policy import KPolicy
+from ..utils.rng import fill_seed_caches
+
+class ReplayTruncated(Exception):
+    """The interleave asked for a range past the recorded end of a
+    rec_cap-truncated stream: the pair must be recorded again uncapped."""
+
+
+class RecordedStream:
+    """A lane's recorded range stream: the raw hit-record rows plus the
+    per-driver strand tables needed to build each FoundRange lazily (many
+    recorded ranges are never popped: the interleave stops as soon as the
+    pair is decided)."""
+
+    __slots__ = ("rows", "qlen", "o_fw", "o_efw", "capped")
+
+    def __init__(self, rows, qlen, o_fw, o_efw):
+        self.rows = rows            # np [n, HIT_W] hit records
+        self.qlen = qlen
+        self.o_fw = o_fw
+        self.o_efw = o_efw
+        # done column 2: the lane was frozen by rec_cap, the stream may
+        # be truncated (best_device._record_range)
+        self.capped = len(rows) > 0 and int(rows[-1][6]) == 2
+
+    def __len__(self):
+        return len(self.rows)
+
+    def materialize(self, t):
+        rec = self.rows[t]
+        drv = int(rec[0])
+        ne = int(rec[5])
+        mms = [self.qlen - int(rec[8 + k]) - 1 for k in range(ne)]
+        refcs = [int(rec[8 + MM_SLOTS + k]) for k in range(ne)]
+        fr = FoundRange(
+            top=int(rec[1]), bot=int(rec[2]), cost=int(rec[3]),
+            stratum=int(rec[4]), num_mms=ne, fw=bool(self.o_fw[drv]),
+            ebwt_fw=bool(self.o_efw[drv]), mms=mms, refcs=refcs)
+        return fr, int(rec[6]) == 1
+
+
+class ReplayDriver:
+    """Feeds a recorded FoundRange stream through the BestDriver
+    advance()/range()/done interface the paired interleave consumes."""
+
+    __slots__ = ("_s", "_i", "_cur", "found_range", "done")
+
+    def __init__(self, stream: RecordedStream):
+        self._s = stream
+        self._i = 0
+        self._cur = None
+        self.found_range = False
+        self.done = len(stream) == 0
+
+    def advance(self, _until):
+        if self._i < len(self._s):
+            r, done = self._s.materialize(self._i)
+            self._i += 1
+            self._cur = r
+            self.found_range = True
+            # done-at-emission: the host CostAwareDriver.advance can set
+            # done together with found_range (range_source.h:2262+);
+            # otherwise done only once the stream is exhausted.  A capped
+            # stream's machine was frozen early, so the end of the
+            # recorded stream proves nothing: stay not-done and escalate
+            # if the interleave advances again.
+            self.done = bool(done) or (self._i >= len(self._s)
+                                       and not self._s.capped)
+        else:
+            if self._s.capped:
+                raise ReplayTruncated
+            self.done = True
+
+    def range(self):
+        return self._cur
+
+
+class _StrandMachine:
+    """One strand's driver DAG for the recorder: the outer drivers, their
+    HostInit and the machine's static switches (mate is per lane, through
+    its query)."""
+
+    def __init__(self, idx_fw, idx_bw, mode, v, seed_mms, seed_len,
+                 qual_cutoff, fw, maq, qual_order, maxbts, max_steps):
+        nofw, norc = (not fw), fw
+        if mode == "n":
+            self.outers = seeded_mode_configs(seed_mms, nofw, norc)
+            self.qual_lim = qual_cutoff
+            self.bt_on = seed_mms >= 2
+            sl = seed_len
+        else:
+            self.outers = v_mode_configs(v, nofw, norc)
+            self.qual_lim = INF32
+            self.bt_on = False
+            sl = 0
+        self.has_seeded = mode == "n"
+        self.hostinit = HostInit(self.outers, idx_fw, idx_bw, maq,
+                                 qual_order, self.qual_lim, sl)
+        self.qual_order = qual_order
+        self.maxbts = maxbts
+        self.max_steps = max_steps
+
+
+def fused_host_init(machs, reads, grp, seeds, L):
+    """HostInit.build's arrays for lanes of several driver DAGs in one
+    run: lane j of `reads` takes DAG grp[j] (machs[grp[j]]'s HostInit)
+    and its config bases cfg0f/cfg0o point at that DAG's block of the
+    concatenated tables (pe_device.py:715-731).  seeds: the outer
+    CostAware's seed of each lane, which for a paired lane is mate 1's
+    (range_source.h:2084)."""
+    B = len(reads)
+    host = {}
+    for g, mach in enumerate(machs):
+        sel = np.flatnonzero(grp == g)
+        if not len(sel):
+            continue
+        part = mach.hostinit.build([reads[j] for j in sel], L, seeds[sel])
+        for kname, v in part.items():
+            if kname not in host:
+                host[kname] = np.zeros((B,) + v.shape[1:], v.dtype)
+            host[kname][sel] = v
+    host["cfg0f"] = grp * machs[0].hostinit.ndt
+    host["cfg0o"] = grp * machs[0].hostinit.nd
+    return host
+
+
+def _score_batch(ra, ref_cat, ref_base, ref_len, reqs):
+    """RefAlignerPy.score over many rescue requests at once.
+
+    One request's window scan touches only ~250 x 35 cells, so the
+    per-call cost is numpy's fixed overhead; batching all live pairs'
+    scans into [n, NC, qlen] arrays saves most of it.  Byte-equivalent to
+    per-request score(): the same zig-zag candidate order, the same
+    validity rules.  reqs: list of (tidx, seq, qual, begin, end,
+    seed_on_left)."""
+    out = [None] * len(reqs)
+    groups = {}
+    for k, (tidx, seq, qual, begin, end, sol) in enumerate(reqs):
+        seq = np.asarray(seq)
+        if (seq > 3).any():
+            continue            # Ns in query disqualify
+        groups.setdefault((len(seq), bool(sol)), []).append(k)
+    if len(reqs) < 48:
+        # small waves (the tail where few pairs remain live): per-request
+        # scoring is as fast as a padded batch
+        for k, (tidx, seq, qual, begin, end, sol) in enumerate(reqs):
+            base = ref_base[tidx]
+            ref = ref_cat[base:base + ref_len[tidx]]
+            out[k] = ra.score(ref, np.asarray(seq), qual, begin, end, sol)
+        return out
+    for (qlen, sol), ks in groups.items():
+        n = len(ks)
+        begin = np.array([reqs[k][3] for k in ks], np.int64)
+        end = np.array([reqs[k][4] for k in ks], np.int64)
+        tidxs = np.array([reqs[k][0] for k in ks], np.int64)
+        qry = np.stack([np.asarray(reqs[k][1], np.uint8) for k in ks])
+        reflen = ref_len[tidxs]
+        if sol:
+            qbegin, qend = begin, end - qlen
+        else:
+            qbegin, qend = begin + qlen, end
+        lim = qend - qbegin
+        halfway = qbegin + (lim >> 1)
+        # one contiguous window per request ([n, W + qlen]) scored in
+        # window order; the zig-zag order applies only when the (few)
+        # valid candidates are extracted per request
+        lo_zz = halfway - ((lim + 1) >> 1)
+        lo_w = (lo_zz if sol else lo_zz - qlen)
+        lo_w = np.maximum(lo_w, 0)
+        span = int(lim.max()) + qlen + 2
+        npos = span - qlen + 1
+        widx = lo_w[:, None] + np.arange(span, dtype=np.int64)
+        widx = np.minimum(widx, (reflen - 1)[:, None])
+        win = ref_cat[ref_base[tidxs][:, None] + widx]   # [n, span]
+        sw = np.lib.stride_tricks.sliding_window_view(win, qlen, axis=1)
+        neq = sw != qry[:, None, :]                 # [n, npos, qlen]
+        okn = ~(sw > 3).any(axis=2)
+        if ra.v is not None:
+            mmc = neq.sum(axis=2)
+            okn &= mmc <= ra.v
+            strat_all = mmc
+            ham_all = np.zeros((n, npos), np.int64)
+        else:
+            slen = min(ra.seed_len, qlen)
+            if sol:
+                seedcols = np.arange(qlen) < slen
+            else:
+                seedcols = np.arange(qlen) >= qlen - slen
+            seed_mm = (neq & seedcols[None, None, :]).sum(axis=2)
+            quals = np.stack([np.frombuffer(reqs[k][2], np.uint8)
+                              for k in ks]).astype(np.int32) - 33
+            from .backtrack_oracle import QUAL_ROUNDS
+            pens = QUAL_ROUNDS[quals] if ra.maq else quals
+            ham_all = (pens[:, None, :] * neq).sum(axis=2)
+            okn &= (seed_mm <= ra.seed_mms) & (ham_all <= ra.qual_max)
+            strat_all = seed_mm
+        NC = int(lim.max()) + 1
+        i = np.arange(1, NC + 1, dtype=np.int64)
+        for r, k in enumerate(ks):
+            ri = np.where(i & 1, halfway[r] - (i >> 1),
+                          halfway[r] + (i >> 1))[:lim[r] + 1]
+            left = ri if sol else ri - qlen
+            inb = (left >= 0) & (left + qlen <= reflen[r])
+            off = left - lo_w[r]
+            offc = np.clip(off, 0, npos - 1)
+            jj = np.flatnonzero(inb & (off >= 0) & (off < npos) &
+                                okn[r, offc])
+            if len(jj):
+                oj = off[jj]
+                out[k] = (left[jj], strat_all[r, oj], ham_all[r, oj],
+                          sw[r, oj].copy(), neq[r, oj])
+    return out
+
+
+# Set in the parent right before the replay pool forks; children inherit
+# it copy-on-write.  It holds only host state (the host aligner, the
+# reference, numpy streams): a forked child must never touch CUDA.
+_PE_WORKER = None
+
+
+def _pe_replay_worker(chunk):
+    out = []
+    for i, rd1, rd2, streams in chunk:
+        res, esc = _PE_WORKER.replay(rd1, rd2, streams)
+        out.append((i, res, esc))
+    return out
+
+
+class _ReplayState:
+    """The replay's host state, which the fork pool's children inherit:
+    the host V1 aligner whose driver factory pops installed streams (or
+    builds live host drivers for pairs that fall back), and the reference
+    concatenated for _score_batch."""
+
+    def __init__(self, host):
+        self._host = host
+        self._live_factory = host.driver_factory
+        host.driver_factory = self._factory
+        self._streams = None        # per pair [d1f, d1r, d2f, d2r]
+        refs = host.refs
+        self.ref_cat = np.concatenate([np.asarray(r, np.uint8)
+                                       for r in refs])
+        lens = np.array([len(r) for r in refs], np.int64)
+        self.ref_base = np.zeros(len(refs), np.int64)
+        np.cumsum(lens[:-1], out=self.ref_base[1:])
+        self.ref_len = lens
+
+    def _factory(self, rd1, rd2):
+        if self._streams is not None:
+            return [ReplayDriver(s) for s in self._streams]
+        return self._live_factory(rd1, rd2)
+
+    def replay(self, rd1, rd2, streams):
+        """Replay one pair (streams None: live host drivers); returns
+        (result, escalate)."""
+        self._streams = streams
+        try:
+            return self._host.align_pair(rd1, rd2), False
+        except ReplayTruncated:
+            return None, True
+        finally:
+            self._streams = None
+
+    def replay_wave(self, pairs, items):
+        """Advance every pair's interleave generator one rescue request
+        at a time, scoring all pairs' rescue windows of a wave in one
+        batch (_score_batch)."""
+        host = self._host
+        out = []
+        live = {}
+        results_for = {}
+        for i, streams in items:
+            if streams is None:
+                out.append((i, *self.replay(*pairs[i], None)))
+                continue
+            drivers = [ReplayDriver(s) for s in streams]
+            live[i] = host.align_pair_gen(*pairs[i], drivers)
+            results_for[i] = None
+        while live:
+            reqs = []
+            for i in list(live):
+                g = live[i]
+                try:
+                    req = g.send(results_for.pop(i, None))
+                except StopIteration as e:
+                    out.append((i, e.value, False))
+                    del live[i]
+                    continue
+                except ReplayTruncated:
+                    out.append((i, None, True))
+                    del live[i]
+                    continue
+                reqs.append((i, req))
+            if reqs:
+                scored = _score_batch(host.ra, self.ref_cat, self.ref_base,
+                                      self.ref_len, [r for _, r in reqs])
+                for (i, _), sc in zip(reqs, scored):
+                    results_for[i] = sc
+        return out
+
+
+class DevicePairedBestAligner:
+    """The paired V1 aligner with anchor streams recorded on `device`
+    (default CUDA): align_batch(pairs) gives what
+    make_paired_best_aligner's product gives.
+
+    threads > 1 forks a pool for the host replay (the -p analog of the
+    reference's per-thread aligner graphs, ebwt_search.cpp:1333).  The
+    pool forks in the constructor, after the host state is built and
+    before this aligner allocates anything on the card, and its children
+    run only the host replay, on numpy.  It forks, as ParallelHostAligner
+    and the reference do, so that the children inherit the host engine's
+    index tables instead of building them again; close() stops it."""
+
+    DENSE_LIMIT = 1 << 28
+
+    def __init__(self, idx_fw, idx_bw, refs, policy: KPolicy,
+                 mode: str = "n", v: int = 0, seed_mms: int = 2,
+                 seed_len: int = 28, qual_cutoff: int = 70,
+                 fw1: bool = True, fw2: bool = False,
+                 min_insert: int = 0, max_insert: int = 250,
+                 pairtries: int = 100, mixed_thresh: int = 4,
+                 sym_ceiling: int = 0xFFFFFFFF, maq: bool = True,
+                 better: bool = False, global_seed: int = 0,
+                 maxbts: int = 800, max_steps: int = 60000,
+                 compact: bool | None = None, threads: int = 1,
+                 device=None):
+        global _PE_WORKER
+        if idx_fw.length >= (1 << 31):
+            raise ValueError(
+                f"the best-first machine compares rows as signed int32; "
+                f"joined length {idx_fw.length:,} >= 2^31 routes to the "
+                f"host engine")
+        kw = dict(mode=mode, v=v, seed_mms=seed_mms, seed_len=seed_len,
+                  qual_cutoff=qual_cutoff, maq=maq, qual_order=not better,
+                  maxbts=maxbts, max_steps=max_steps)
+        self.m_fw = _StrandMachine(idx_fw, idx_bw, fw=True, **kw)
+        self.m_rc = _StrandMachine(idx_fw, idx_bw, fw=False, **kw)
+        hf, hr = self.m_fw.hostinit, self.m_rc.hostinit
+        assert (hf.nd, hf.ndt) == (hr.nd, hr.ndt)
+        self.global_seed = global_seed
+        self.fw1, self.fw2 = fw1, fw2
+        self.fallbacks = 0
+        self.escalations = 0
+        # stop each lane after this many recorded ranges instead of
+        # running its driver to exhaustion; a pair whose interleave
+        # outruns a capped stream re-records uncapped (a pair with no
+        # alignment must drain every driver, so the cap sits near the
+        # hit pool's bound to keep those rare).  -k > 1, -a, -m and -M
+        # chase every range: uncapped there.
+        self.rec_cap = 12 if not policy.want_all_rows() else None
+        self._replay_state = _ReplayState(make_paired_best_aligner(
+            GoldenFM(idx_fw), GoldenFM(idx_bw), refs, policy,
+            mode=mode, v=v, seed_mms=seed_mms, seed_len=seed_len,
+            qual_cutoff=qual_cutoff, fw1=fw1, fw2=fw2,
+            min_insert=min_insert, max_insert=max_insert,
+            pairtries=pairtries, mixed_thresh=mixed_thresh,
+            sym_ceiling=sym_ceiling, maq=maq, better=better,
+            global_seed=global_seed, maxbts=maxbts))
+        self.threads = max(1, min(threads, os.cpu_count() or 1))
+        self._pool = None
+        if self.threads > 1 and hasattr(os, "fork"):
+            _PE_WORKER = self._replay_state
+            gc.collect()       # no pending garbage a child could free
+            self._pool = mp.get_context("fork").Pool(self.threads)
+        if compact is None:
+            compact = idx_fw.length > self.DENSE_LIMIT
+        self.pair = build_fmpair(idx_fw, idx_bw, device,
+                                 dense_sa=not compact)
+        self._fcfg = {k: np.concatenate([hf.cfg[k], hr.cfg[k]])
+                      for k in CFG_F + CFG_O}
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    # -- replay ------------------------------------------------------------
+
+    def _replay_all(self, pairs, items):
+        """Replay (i, streams) items -> [(i, result, escalate)]: the
+        interleave generators run in waves with batched rescue scoring;
+        live-driver fallbacks (streams None) run per pair.  The fork pool
+        (threads > 1) splits the items across processes."""
+        if self._pool is not None and len(items) >= 2 * self.threads:
+            work = [(i, pairs[i][0], pairs[i][1], streams)
+                    for i, streams in items]
+            nchunks = min(len(work), self.threads * 4)
+            size = -(-len(work) // nchunks)
+            chunks = [work[k:k + size] for k in range(0, len(work), size)]
+            out = []
+            for part in self._pool.map(_pe_replay_worker, chunks):
+                out.extend(part)
+            return out
+        return self._replay_state.replay_wave(pairs, items)
+
+    # -- the fused recording -----------------------------------------------
+
+    def _record_all(self, plan, idxs, seeds, cap):
+        """Record all four anchor streams of the pairs idxs (seeds: mate
+        1's seed of each) in ONE machine run over every (pair, mate,
+        orientation) lane; each lane's cfg0f/cfg0o bases select the fw- or
+        rc-DAG tables.  K10r, then K11 and one download.  Lanes the
+        machine does not take (under 4 or over 255 bases) overflow: their
+        pairs re-run on the host drivers.  -> (streams {i: [4 streams]},
+        overflowed {i: bool})."""
+        lanes = self._lanes(plan, idxs, seeds)
+        sts = {i: [None] * 4 for i in idxs}
+        ovd = {i: False for i in idxs}
+        n = len(lanes["need"])
+        overflow = np.ones(n, bool)
+        hits = np.zeros((n, H_MAX, HIT_W), np.int32)
+        nh = np.zeros(n, np.int32)
+        take = lanes["take"]
+        if len(take):
+            args = self._machine_args(lanes)
+            out, _ = run_machine(*args["args"], **args["kw"], rec_cap=cap)
+            h = unpack_harvest(best_pack(out).cpu().numpy(), len(take))
+            overflow[take] = h["overflow"]
+            hits[take] = h["hits"]
+            nh[take] = h["nhits"]
+        for j, (mach, read, slot, k) in enumerate(lanes["need"]):
+            i = idxs[k]
+            if overflow[j]:
+                ovd[i] = True
+                continue
+            sts[i][slot] = RecordedStream(
+                hits[j, :int(nh[j])], len(read.seq),
+                mach.hostinit.cfg["o_fw"], mach.hostinit.cfg["o_chase_efw"])
+        return sts, ovd
+
+    def _lanes(self, plan, idxs, seeds):
+        """The lanes of one recording: need[j] = (machine, read, stream
+        slot, index into idxs), the fw-DAG's lanes first so that each
+        lane's config base is monotone; take: the lanes the machine runs
+        (4-255 bases).  Two seeds per lane: mate 1's (seeds) for the outer
+        CostAware (its sort draws, the strandFix swap) and the lane's own
+        read's for the range sources and the seeded drivers' inner
+        CostAware, as the host drivers seed them
+        (best_driver.CostAwareDriver.seed_read, best.BestRangeSource.
+        set_query).  The reference's recorder seeds the latter with mate
+        1's too (ROADMAP queue 3)."""
+        need = []
+        for mach, mates, slot in plan:
+            grp = 0 if mach is self.m_fw else 1
+            need += [(grp, slot, k, mach, mates[i])
+                     for k, i in enumerate(idxs)]
+        need.sort(key=lambda t: t[:3])
+        reads = [t[4] for t in need]
+        return dict(
+            need=[(t[3], t[4], t[1], t[2]) for t in need],
+            grp=np.array([t[0] for t in need], np.int32),
+            ca_seeds=seeds[np.array([t[2] for t in need], np.int64)],
+            own_seeds=fill_seed_caches(reads, self.global_seed),
+            take=np.array([j for j, r in enumerate(reads)
+                           if 4 <= len(r.seq) <= 255], np.int64))
+
+    def _machine_args(self, lanes):
+        """run_machine's arguments (but rec_cap) for the lanes taken."""
+        take = lanes["take"]
+        reads = [lanes["need"][j][1] for j in take]
+        L = _len_bucket(max(len(r.seq) for r in reads))
+        host = fused_host_init((self.m_fw, self.m_rc), reads,
+                               lanes["grp"][take], lanes["ca_seeds"][take], L)
+        seeds = torch.from_numpy(lanes["own_seeds"][take].astype(np.int64))
+        m = self.m_fw
+        return dict(
+            args=(self.pair, self._fcfg, host, seeds.to(self.pair.device)),
+            kw=dict(L=L, nd=m.hostinit.nd, ndt=m.hostinit.ndt,
+                    maxbts=m.maxbts, n_k=INF32, m_max=INF32, strata=False,
+                    qual_lim=m.qual_lim, qual_order=m.qual_order,
+                    bt_on=m.bt_on, has_seeded=m.has_seeded,
+                    max_steps=m.max_steps, record=True))
+
+    def record_inputs(self, pairs):
+        """run_machine's arguments (but rec_cap) for recording all four
+        streams of `pairs`, as align_batch's first round records them: for
+        holding K10r to its plain version.  -> dict(args=, kw=)."""
+        idxs = list(range(len(pairs)))
+        seeds = fill_seed_caches([p[0] for p in pairs], self.global_seed)
+        return self._machine_args(self._lanes(self.plan(pairs), idxs,
+                                              seeds))
+
+    def plan(self, pairs):
+        """The four (machine, mates, stream slot) sections of the
+        recording: each mate in the pair's fw orientation, then in its rc
+        orientation; slots in the driver factory's order [d1f, d1r, d2f,
+        d2r]."""
+        m1 = [p[0] for p in pairs]
+        m2 = [p[1] for p in pairs]
+        slotL = 0 if self.fw1 else 1          # mate1, fw orientation
+        slotR = 2 if self.fw2 else 3          # mate2, fw orientation
+        slotLb = 1 if self.fw1 else 0         # mate1, rc orientation
+        slotRb = 3 if self.fw2 else 2
+        machL = self.m_fw if self.fw1 else self.m_rc
+        machR = self.m_fw if self.fw2 else self.m_rc
+        machLb = self.m_rc if self.fw1 else self.m_fw
+        machRb = self.m_rc if self.fw2 else self.m_fw
+        return ((machL, m1, slotL), (machR, m2, slotR),
+                (machLb, m1, slotLb), (machRb, m2, slotRb))
+
+    def align_batch(self, pairs):
+        """Record all four anchor streams of every pair, capped, in one
+        launch; replay every pair once; then re-record uncapped the pairs
+        whose interleave outran a capped stream and replay them again.
+        Pairs with an overflowing lane re-run on the live host drivers."""
+        if not pairs:
+            return []
+        s1 = fill_seed_caches([p[0] for p in pairs], self.global_seed)
+        plan = self.plan(pairs)
+        results = [None] * len(pairs)
+
+        def record_and_split(idxs, cap):
+            sts, ovd = self._record_all(
+                plan, idxs, s1[np.asarray(idxs, np.int64)], cap)
+            items, fb_items = [], []
+            for i in idxs:
+                if ovd.get(i):
+                    self.fallbacks += 1
+                    fb_items.append((i, None))
+                else:
+                    items.append((i, sts[i]))
+            for i, res, _ in self._replay_all(pairs, fb_items):
+                results[i] = res
+            return items
+
+        # round 1: capped recordings, one replay
+        escal = []
+        for i, res, esc in self._replay_all(
+                pairs, record_and_split(list(range(len(pairs))),
+                                        self.rec_cap)):
+            if esc:
+                escal.append(i)
+            else:
+                results[i] = res
+        if escal:
+            # round 2: the interleave outran a capped stream; re-record
+            # those pairs to exhaustion and replay again
+            self.escalations += len(escal)
+            for i, res, esc in self._replay_all(
+                    pairs, record_and_split(escal, None)):
+                if esc:       # cannot happen on uncapped streams
+                    self.fallbacks += 1
+                    res, _ = self._replay_state.replay(*pairs[i], None)
+                results[i] = res
+        return results

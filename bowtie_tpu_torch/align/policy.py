@@ -9,7 +9,7 @@ results compare field for field with bowtie_tpu/align/policy.py's.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..utils.rng import BtRandom
 
@@ -23,7 +23,8 @@ class AlignStats:
     aligned: int = 0
     failed: int = 0
     maxed: int = 0
-    reported: int = 0          # alignments
+    reported: int = 0          # unpaired/singleton alignments
+    reported_pairs: int = 0    # paired-end alignments (pairs)
 
 
 @dataclass
@@ -33,6 +34,9 @@ class ReadResult:
     nvalid: int = 0       # total valid hits counted (for XM of maxed)
     sampled: bool = False  # -M sampling applied
     nbuffered: int = 0    # buffered hits at finish (xms for -M records)
+    # --reportse: held single-end mate alignments, reported when no
+    # paired alignment landed (PairedBWAlignerV2 SE sinks)
+    se_hits: list = field(default_factory=list)
 
 
 class KPolicy:

@@ -7,7 +7,11 @@
 //   K10 bt_best_machine <- bowtie_tpu/align/best_device.py:638
 //                          _init_state_jit (the prologue) and :2224
 //                          run_chunk (:2173 _machine_step), with K1/K5
-//                          (rank4, lf4pair, lf_row) inlined from fm.cuh
+//                          (rank4, lf4pair, lf_row) inlined from fm.cuh;
+//                          with `record` set, K10r, the record mode of the
+//                          paired-end recorder (:1030-1120 _step_main,
+//                          _record_range; the per-lane config bases
+//                          cfg0f/cfg0o of :854-866 _cfgF/_cfgO)
 //   K11 bt_best_pack    <- best_device.py:2264 _harvest_small, :2270
 //                          _poll_all, :2311 _gather_rows (:2278
 //                          _harvest_poll, :2344 _merge_out)
@@ -33,6 +37,15 @@
 // lane gets max_transitions = 18 * max_steps; whatever the lockstep
 // version finishes within budget, this finishes too.  A lane stops at the
 // transition that raises `overflow` (its result goes to the host engine).
+//
+// Record mode (K10r): a found range is appended to the lane's hit records
+// in emission order, with its driver's done-at-emission flag, instead of
+// being chased; the lane runs until its driver is exhausted or rec_cap
+// ranges are recorded (then the done column of the last record reads 2).
+// One launch holds lanes of two driver DAGs (the paired recorder's fw-DAG
+// and rc-DAG): the config tables are the DAGs' tables one after another
+// and every read of them goes through the lane's bases cfg0f (flat) and
+// cfg0o (outer), zero outside record runs.
 //
 // Rows are int32 here, as in the JAX machine, which compares them signed:
 // the aligner refuses indexes of 2^31 rows or more.  The sentinels
@@ -86,8 +99,10 @@ struct BestArgs {
     int32_t B, L, nd, ndt;
     int32_t n_k, m_max, strata, qual_lim, qual_order, bt_on, has_seeded,
         maxbts;
+    int32_t record, rec_cap;    // K10r; rec_cap < 0: no cap
     int64_t max_transitions;
-    // driver configs (HostInit.cfg): per flat driver, per outer driver
+    // driver configs (HostInit.cfg, or the fused tables of a record run,
+    // read through the lane's cfg0f/cfg0o): per flat, per outer driver
     int32_t cfg_ebwt_fw[NDT_MAX], cfg_fw[NDT_MAX], cfg_exacts[NDT_MAX],
         cfg_hh[NDT_MAX];
     int32_t cfg_o_kind[ND_MAX], cfg_o_flat0[ND_MAX], cfg_o_exbase[ND_MAX],
@@ -105,10 +120,11 @@ namespace {
 
 constexpr int kThreads = 64;
 
-// one lane's state (best_device.py:647 _init_state, less the paired-only
-// registers)
+// one lane's state (best_device.py:647 _init_state, less the paired-V2
+// registers qlen_o and seed_o, which are the lane's qlen and seed here)
 struct St {
     int32_t mode, result, count, best_stratum, nhits, qlen;
+    int32_t cfg0f, cfg0o, pre_min;
     bool overflow;
     uint32_t rng_al, rng_ca, seed;
     int32_t d5_cur, d3_cur, qlen_cur, bt;
@@ -156,6 +172,18 @@ struct Ctx {
 
 __device__ __forceinline__ const BtFM& index_of(const Ctx& x, int32_t efw) {
     return efw > 0 ? x.a.fw : x.a.bw;
+}
+
+// config of flat driver f / outer driver o of the lane's own DAG
+// (_cfgF / _cfgO, :854-866)
+__device__ __forceinline__ int32_t cfgF(const int32_t* table, const St& s,
+                                        int32_t f) {
+    return table[s.cfg0f + f];
+}
+
+__device__ __forceinline__ int32_t cfgO(const int32_t* table, const St& s,
+                                        int32_t o) {
+    return table[s.cfg0o + o];
 }
 
 // RandomSource::nextU32 (random_source.h:36-42)
@@ -337,8 +365,45 @@ __device__ __forceinline__ void swap_(T& a, T& b) {
 
 // ---- aligner-level + outer CostAware steps ---------------------------------
 
+// _record_range (:1064): K10r's loop head.  A found range becomes a hit
+// record [drv, top, bot, cost, stratum, nedits, done, qlen, edit depths
+// (slot MM_SLOTS-1: pre_min), edit chars]; done is 2 on the record that
+// reaches rec_cap with the driver not exhausted.  No chase, no draw.
+__device__ void record_range(St& s, const Ctx& x) {
+    const BestArgs& a = x.a;
+    if (s.ca_found > 0) {
+        const int32_t nmms = s.ls_ne;
+        if (s.nhits >= H_MAX || nmms > MM_SLOTS) {
+            s.overflow = true;
+            s.mode = M_DONE;
+            return;
+        }
+        int32_t done = s.ca_done;
+        if (a.rec_cap >= 0 && s.nhits + 1 >= a.rec_cap && s.ca_done == 0)
+            done = 2;
+        int32_t* h = x.hits + (size_t)s.nhits * HIT_W;
+        h[0] = s.ls_drv; h[1] = s.ls_top; h[2] = s.ls_bot; h[3] = s.ls_cost;
+        h[4] = s.ls_strat; h[5] = nmms; h[6] = done; h[7] = s.qlen;
+        for (int k = 0; k < MM_SLOTS; ++k) {
+            h[8 + k] = k < E_MAX ? s.ls_ed[k] : 0;
+            h[8 + MM_SLOTS + k] = k < E_MAX ? s.ls_ec[k] : 0;
+        }
+        h[8 + MM_SLOTS - 1] = s.pre_min;
+        s.nhits += 1;
+        s.ca_found = 0;
+        if (a.rec_cap >= 0 && s.nhits >= a.rec_cap) s.mode = M_DONE;
+        return;
+    }
+    s.pre_min = s.ca_min;
+    s.mode = s.ca_done > 0 ? M_DONE : M_CADV;
+}
+
 // _step_main (:1030)
 __device__ void step_main(St& s, const Ctx& x) {
+    if (x.a.record) {
+        record_range(s, x);
+        return;
+    }
     if (s.ca_found > 0) {
         if (irrelevant(s, x, s.ls_cost)) {
             s.ca_found = 0;
@@ -386,9 +451,10 @@ __device__ void step_cadv(St& s) {
 
 // _step_oadv (:1180)
 __device__ void step_oadv(St& s, const Ctx& x) {
-    const int32_t kind = x.a.has_seeded ? x.a.cfg_o_kind[s.cur_o] : 0;
+    const int32_t kind = x.a.has_seeded ? cfgO(x.a.cfg_o_kind, s, s.cur_o)
+                                        : 0;
     if (kind == 0) {
-        s.cur = x.a.cfg_o_flat0[s.cur_o];
+        s.cur = cfgO(x.a.cfg_o_flat0, s, s.cur_o);
         s.phase = PH_OUTER;
         load_cur_rows(s, s.cur);
         s.mode = M_DADV;
@@ -417,8 +483,9 @@ __device__ void step_ext(St& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int L = x.L;
     const int32_t cur = s.cur;
-    const int32_t efw = a.cfg_ebwt_fw[cur], hh = a.cfg_hh[cur];
-    const int32_t exacts = a.cfg_exacts[cur];
+    const int32_t efw = cfgF(a.cfg_ebwt_fw, s, cur);
+    const int32_t hh = cfgF(a.cfg_hh, s, cur);
+    const int32_t exacts = cfgF(a.cfg_exacts, s, cur);
     const int32_t d5 = s.d5_cur, d3 = s.d3_cur;
     bool nonempty;
     const int fs = front_select(s, cur, nonempty);
@@ -550,7 +617,7 @@ __device__ void step_spp(St& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int L = x.L;
     const int32_t cur = s.cur;
-    const int32_t efw = a.cfg_ebwt_fw[cur];
+    const int32_t efw = cfgF(a.cfg_ebwt_fw, s, cur);
     const int32_t d3 = s.d3_cur;
     bool nonempty;
     const int fs = front_select(s, cur, nonempty);
@@ -723,8 +790,8 @@ __device__ void step_dend(St& s) {
 // _step_odend (:1624)
 __device__ void step_odend(St& s, const Ctx& x) {
     const int32_t o = s.cur_o;
-    const int32_t f0 = x.a.cfg_o_flat0[o];
-    if (x.a.cfg_o_kind[o] == 0) {
+    const int32_t f0 = cfgO(x.a.cfg_o_flat0, s, o);
+    if (cfgO(x.a.cfg_o_kind, s, o) == 0) {
         s.od_done[o] = s.drv_done[f0];
         s.od_min[o] = s.drv_min[f0];
         if (s.drv_found[f0] > 0) {
@@ -751,10 +818,10 @@ __device__ void step_cpost(St& s, const Ctx& x) {
         s.ca_found = 1;
         s.od_found[o] = 0;
     }
-    const int32_t r_fw = x.a.cfg_o_fw[o];
+    const int32_t r_fw = cfgO(x.a.cfg_o_fw, s, o);
     int i_star = -1;
     for (int i = 1; i < x.a.nd; ++i)
-        if (x.a.cfg_o_fw[i] != r_fw && i < s.act_n) {
+        if (cfgO(x.a.cfg_o_fw, s, i) != r_fw && i < s.act_n) {
             i_star = i;
             break;
         }
@@ -813,7 +880,7 @@ __device__ void step_sort(St& s, const Ctx& x) {
 // _step_sd (:1750)
 __device__ void step_sd(St& s, const Ctx& x) {
     const int32_t o = s.cur_o;
-    const int32_t gen = x.a.cfg_o_flat0[o];
+    const int32_t gen = cfgO(x.a.cfg_o_flat0, s, o);
     const bool gdone = s.drv_done[gen] > 0, gfound = s.drv_found[gen] > 0;
     const bool fdone = s.ic_done[o] > 0, ffound = s.ic_found[o] > 0;
     if (gdone && fdone && !gfound && !ffound) {
@@ -859,7 +926,7 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int L = x.L;
     const int32_t o = s.cur_o;
-    const int32_t gen = a.cfg_o_flat0[o];
+    const int32_t gen = cfgO(a.cfg_o_flat0, s, o);
     const bool gfound = s.drv_found[gen] > 0;
     const int32_t scost = s.rr[gen][2], sne = s.rr[gen][4];
     int32_t sed[3], sec[3];
@@ -876,7 +943,8 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
     }
     const bool ok = gfound;
     if (ok) {
-        const int32_t fe = a.cfg_o_exbase[o] + clampi(slot, 0, PEX - 1);
+        const int32_t fe = cfgO(a.cfg_o_exbase, s, o)
+            + clampi(slot, 0, PEX - 1);
         s.ex_next[o] = slot + 1;
         const int32_t gdq = s.dqlen[gen];
         int32_t pm_m[3], pm_c[3];
@@ -896,7 +964,7 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
         s.drv_nextid[fe] = 0;
         s.pm_min[fe] = 0;
         s.rng_rs[fe] = s.seed;
-        const int32_t efw_e = a.cfg_ebwt_fw[fe];
+        const int32_t efw_e = cfgF(a.cfg_ebwt_fw, s, fe);
         const BtFM& fm = index_of(x, efw_e);
         const int fc = fm.ftab_chars;
         bool dead = false;
@@ -973,7 +1041,7 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
 // _step_sdfull (:1966)
 __device__ void step_sdfull(St& s, const Ctx& x) {
     const int32_t o = s.cur_o;
-    const int32_t gen = x.a.cfg_o_flat0[o];
+    const int32_t gen = cfgO(x.a.cfg_o_flat0, s, o);
     if (s.ic_found[o] > 0) {
         s.od_found[o] = 1;
         s.ic_found[o] = 0;
@@ -1040,7 +1108,7 @@ __device__ void step_icpost(St& s) {
 // sink (range_chaser.h:22; BestSink.report_hit)
 __device__ void step_chase(St& s, const Ctx& x) {
     const BestArgs& a = x.a;
-    const int32_t efw = a.cfg_o_chase_efw[s.ls_drv];
+    const int32_t efw = cfgO(a.cfg_o_chase_efw, s, s.ls_drv);
     const BtFM& fm = index_of(x, efw);
     const int32_t spread = s.ls_bot - s.ls_top;
     int32_t ri = s.ch_r + s.ch_k;
@@ -1107,7 +1175,8 @@ __device__ void step_chase(St& s, const Ctx& x) {
                 return;
             }
             int32_t* h = x.hits + (size_t)s.nhits * HIT_W;
-            h[0] = tidx; h[1] = toff; h[2] = a.cfg_o_fw[s.ls_drv] | (efw << 1);
+            h[0] = tidx; h[1] = toff;
+            h[2] = cfgO(a.cfg_o_fw, s, s.ls_drv) | (efw << 1);
             h[3] = spread - 1; h[4] = s.ls_strat; h[5] = s.ls_cost;
             h[6] = nmms; h[7] = qlen;
             for (int k = 0; k < MM_SLOTS; ++k) {
@@ -1163,6 +1232,8 @@ __device__ void init_lane(St& s, const Ctx& x, const int32_t* r,
     s.rng_ca = (uint32_t)*r++;
     s.ca_min = *r++;
     s.qlen = *r++;
+    s.cfg0f = *r++;
+    s.cfg0o = *r++;
     s.mode = M_MAIN;
     s.rng_al = s.seed = seed;
     for (int f = 0; f < NDT_MAX; ++f) s.rng_rs[f] = seed;
@@ -1180,7 +1251,7 @@ best_machine_kernel(const BestArgs a) {
                 a.ptb + (size_t)b * NBR * 2 * L,
                 a.meta + (size_t)b * NBR * L,
                 a.hits + (size_t)b * H_MAX * HIT_W};
-    const int ni = 17 * NBR + 13 * a.ndt + 4 * a.nd + 4;
+    const int ni = 17 * NBR + 13 * a.ndt + 4 * a.nd + 6;
     for (int k = 0; k < NBR * 2 * L; ++k) x.ptb[k] = 0;
     for (int k = 0; k < NBR * L; ++k) x.meta[k] = META_ALL_DEAD;
     for (int k = 0; k < H_MAX * HIT_W; ++k) x.hits[k] = 0;
@@ -1276,7 +1347,7 @@ int bt_best_pack(const void* result, const void* overflow, const void* count,
 
 // the width of pack_init's per-lane row for nd outer / ndt flat drivers
 int bt_best_init_width(int nd, int ndt) {
-    return 17 * NBR + 13 * ndt + 4 * nd + 4;
+    return 17 * NBR + 13 * ndt + 4 * nd + 6;
 }
 
 }  // extern "C"

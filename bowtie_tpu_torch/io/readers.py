@@ -1,4 +1,4 @@
-"""Read-input layer: FASTQ/FASTA/raw/command-line, single-end.
+"""Read-input layer: FASTQ/FASTA/raw/tabbed/interleaved/command-line.
 
 Re-design of bowtie's PatternSource hierarchy (pat.h:195-944).  The
 reference uses a locked nextBatch + lock-free parse split to feed
@@ -11,10 +11,13 @@ Formats (reference classes):
 - raw              RawPatternSource      pat.h:744
 - cmdline (-c)     VectorPatternSource   pat.h:260
 - FASTA continuous (-F k,i) FastaContinuousPatternSource pat.h:594
+- tabbed (--12)    TabbedPatternSource   pat.h:536
+- interleaved      FastqPatternSource(interleaved=true)
+- paired -1/-2     DualPatternComposer   pat.cpp:134-229 (PairedReadSource)
 
 Plain FASTQ files go through the native parser (native/fastio.cpp;
-parse_fastq says when the pure-Python parser takes them).  Paired input
-(-1/-2, --12, --interleaved) is not ported yet.
+parse_fastq says when the pure-Python parser takes them), interleaved and
+-1/-2 mates included.
 """
 from __future__ import annotations
 
@@ -119,6 +122,14 @@ def convert_quals(qual: bytes, solexa: bool, phred64: bool,
     elif phred64:
         arr = arr - 64 + 33
     return np.clip(arr, 33, 126).astype(np.uint8).tobytes()
+
+
+def _fix_mate_name(name: bytes, mate: int) -> bytes:
+    """Append /1 or /2 unless already suffixed (Read::fixMateName,
+    read.h:141-161).  Applied to every paired read whatever the input
+    format: the per-read RNG seed derives from the fixed name."""
+    sfx = b"/1" if mate == 1 else b"/2"
+    return name if name[-2:] == sfx and len(name) >= 2 else name + sfx
 
 
 def parse_fastq(path: str, keep_orig: bool = False, use_native: bool = True
@@ -246,6 +257,23 @@ def parse_fasta_continuous(path: str, length: int, freq: int,
                 yield nm, sub, b"I" * length
 
 
+def parse_tabbed(path: str, keep_orig: bool = False) -> Iterator[tuple]:
+    """--12 format: name\\tseq\\tqual (unpaired) or
+    name\\tseq1\\tqual1\\tseq2\\tqual2 (paired).  With keep_orig the
+    raw line (both mates) is appended: the reference's onePairFile dump
+    writes it whole (hit.h:388-396)."""
+    with _open(path) as f:
+        for line in f:
+            parts = line.rstrip(b"\n").split(b"\t")
+            if len(parts) >= 5:
+                out = (parts[0], parts[1], parts[2], parts[3], parts[4])
+            elif len(parts) >= 3:
+                out = (parts[0], parts[1], parts[2])
+            else:
+                continue
+            yield out + (line.rstrip(b"\n") + b"\n",) if keep_orig else out
+
+
 class ReadSource:
     """Unified read source mirroring PatternComposer semantics: assigns
     global read ids, applies trimming/qual conversion, yields device-
@@ -329,6 +357,94 @@ class ReadSource:
         batch: list[ReadRecord] = []
         for rec in self.records():
             batch.append(rec)
+            if len(batch) == batch_size:
+                yield batch
+                batch = []
+        if batch:
+            yield batch
+
+
+class PairedReadSource:
+    """DualPatternComposer analog: parallel _1/_2 files (pat.cpp:134-229).
+    Yields (mate1, mate2) ReadRecord pairs; also --12 tabbed files, whose
+    unpaired records come as (read, None), and interleaved FASTQ."""
+
+    def __init__(self, paths1, paths2, fmt="fastq", interleaved=False,
+                 tabbed=False, upto=None, skip=0, keep_orig=False, **kw):
+        self.paths1, self.paths2 = paths1, paths2
+        self.fmt, self.interleaved, self.tabbed = fmt, interleaved, tabbed
+        self.upto, self.skip = upto, skip
+        self.keep_orig = keep_orig
+        self.kw = kw
+
+    def pairs(self) -> Iterator[tuple]:
+        yield from itertools.islice(
+            self._pairs_raw(), self.skip,
+            None if self.upto is None else self.skip + self.upto)
+
+    def _pairs_raw(self) -> Iterator[tuple]:
+        ko = self.keep_orig
+        if self.tabbed:
+            rdid = 0
+            for path in self.paths1:
+                for parts in parse_tabbed(path, keep_orig=ko):
+                    orig = parts[-1] if ko else None
+                    if ko:
+                        parts = parts[:-1]
+                    if len(parts) == 5:
+                        nm, s1, q1, s2, q2 = parts
+                        # onePairFile: the whole raw line rides on mate 1
+                        # (hit.h:388-396 dumps bufa only)
+                        yield (self._mk(nm, s1, q1, rdid, 1, orig),
+                               self._mk(nm, s2, q2, rdid, 2))
+                    else:
+                        # --12 files mix paired (5-column) and unpaired
+                        # (3-column) records (TabbedPatternSource::parse,
+                        # pat.cpp:1017-1100); a solo read keeps its name
+                        nm, s1, q1 = parts
+                        yield self._mk(nm, s1, q1, rdid, 0, orig), None
+                    rdid += 1
+            return
+        if self.interleaved:
+            rdid = 0
+            for path in self.paths1:
+                it = parse_fastq(
+                    path, keep_orig=ko,
+                    use_native=not self.kw.get("integer_quals", False))
+                for r1, r2 in zip(it, it):
+                    yield (self._mk(r1[0], r1[1], r1[2], rdid, 1,
+                                    r1[3] if ko else None),
+                           self._mk(r2[0], r2[1], r2[2], rdid, 2,
+                                    r2[3] if ko else None))
+                    rdid += 1
+            return
+        src1 = ReadSource(self.paths1, self.fmt, keep_orig=ko, **self.kw)
+        src2 = ReadSource(self.paths2, self.fmt, keep_orig=ko, **self.kw)
+        for r1, r2 in zip(src1.records(), src2.records()):
+            r1.mate, r2.mate = 1, 2
+            r1.name = _fix_mate_name(r1.name, 1)
+            r2.name = _fix_mate_name(r2.name, 2)
+            r2.rdid = r1.rdid
+            yield r1, r2
+
+    def _mk(self, name, seq, qual, rdid, mate, orig=None) -> ReadRecord:
+        qual = convert_quals(qual, self.kw.get("solexa", False),
+                             self.kw.get("phred64", False),
+                             self.kw.get("integer_quals", False))
+        seq, qual, t5, t3 = _apply_trim(seq, qual, self.kw.get("trim5", 0),
+                                        self.kw.get("trim3", 0))
+        if len(qual) < len(seq):
+            qual = qual + b"I" * (len(seq) - len(qual))
+        if mate:
+            name = _fix_mate_name(name, mate)
+        return ReadRecord(name=name, seq=seq, qual=qual[:len(seq)],
+                          rdid=rdid, mate=mate, orig=orig, trimmed5=t5,
+                          trimmed3=t3)
+
+    def batches(self, batch_size: int):
+        batch = []
+        for pair in self.pairs():
+            batch.append(pair)
             if len(batch) == batch_size:
                 yield batch
                 batch = []

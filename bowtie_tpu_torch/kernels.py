@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
-The sources compile at first use, with nvcc for sm_90a, into
+The sources compile at first use, with nvcc for sm_90a (one nvcc per
+source, all started together, then one link), into
 ``csrc/build/libbtkernels.so`` (listed in .gitignore), and load through
 ctypes; each C entry point launches one kernel on the stream it is given
 and returns ``cudaGetLastError()``.  The wrappers in ``align/`` check
@@ -28,7 +29,7 @@ HEADERS = ("fm.cuh",)
 LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
             "resolve_rows_sa": 0, "one_row": 0, "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
-            "best_machine": 0, "best_pack": 0}
+            "best_machine": 0, "best_record": 0, "best_pack": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -50,24 +51,44 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into csrc/build/libbtkernels.so unless it is
-    newer than every source; returns its path.  ptxas's register and
-    spill report is kept in csrc/build/ptxas.txt."""
+    newer than every source; returns its path.  Each source compiles in
+    its own nvcc process, all at once, and one more links them.  ptxas's
+    register and spill report is kept in csrc/build/ptxas.txt."""
     srcs = [os.path.join(_CSRC, s) for s in SOURCES + HEADERS]
     if (not force and os.path.exists(_LIB) and os.path.getmtime(_LIB)
             >= max(os.path.getmtime(s) for s in srcs)):
         return _LIB
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp,
-           *[os.path.join(_CSRC, s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(_BUILD_DIR, f"{src}.{tag}.o")
+        cmd = [_nvcc(), *arch, "-std=c++17", "-O3", "-c", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-o", obj,
+               os.path.join(_CSRC, src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    report, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        report.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{err}")
     with open(os.path.join(_BUILD_DIR, "ptxas.txt"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{proc.stderr}")
+        f.write("".join(report))
+    tmp = f"{_LIB}.{tag}"
+    if not failed:
+        cmd = [_nvcc(), *arch, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, _LIB)
     return _LIB
 

@@ -90,8 +90,30 @@ Phases, each printing one JSON line:
              counted; every hit must equal its reference substring except at
              its reported mismatches, and the records of the first 400
              reads must equal the CPU CLI's byte for byte.
+11. pe     - the paired recorder: 512 pairs of 50 bp mates (pe_pairs: the
+             n phase's error and quality mix, fragments of 100-250 bases,
+             10 % with a random mate, 5 % 400-600 apart), all four anchor
+             streams of each in one fused launch (2,048 lanes).  K10r
+             (best_machine in record mode) held exactly to its plain
+             version on the card (hits, nhits, overflow, mode) on every
+             lane the plain version finished within its budget, under -n 2
+             -k 1 (rec_cap 12) and -v 2 -a -m 3 (uncapped) on the dense
+             pair, and -n 2 -k 1 on 128 pairs with the pair thinned to
+             offRate 13 (walk-left).  The first policy is timed; K10r's
+             bytes are those the run reads and writes (k10_bytes).
+12. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
+             default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
+             --fr -X 250) and -v 2 -a -m 1 -S, each run twice and the
+             second counted from zero and traced, with the pairs re-run on
+             the host drivers (fallbacks) and re-recorded uncapped
+             (escalations) counted; every reported mate must equal its
+             reference substring except at its reported mismatches; the
+             default command on the first 1,000 pairs must write what the
+             port's V1 host engine writes (build_aligner(host_engine=
+             True)), and with -p 4 on the first 2,000 what it writes with
+             -p 1.
 
-Then the {"kernels": [...]} line (launches: the eight CLI runs; K3 dense's
+Then the {"kernels": [...]} line (launches: the CLI runs; K3 dense's
 library-run launches beside its 0), the script's total seconds, the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
 raises and the script exits non-zero without that last line.  It needs
@@ -128,6 +150,8 @@ from bowtie_tpu_torch.align.dfs_jobs import (  # noqa: E402
     build_n_jobs_a_vec, build_v_jobs_vec)
 from bowtie_tpu_torch.align.drivers import OracleAligner  # noqa: E402
 from bowtie_tpu_torch.align.golden import GoldenFM  # noqa: E402
+from bowtie_tpu_torch.align.pe_device import (  # noqa: E402
+    DevicePairedBestAligner)
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
     exact_ranges, exact_ranges_plain, resolve_rows, resolve_rows_plain)
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
@@ -138,7 +162,8 @@ from bowtie_tpu_torch.cli import align as cli  # noqa: E402
 from bowtie_tpu_torch.index.arrays import from_ebwt  # noqa: E402
 from bowtie_tpu_torch.index.ebwt_io import (  # noqa: E402
     read_bitpair_reference, read_ebwt, unpack_reference)
-from bowtie_tpu_torch.io.readers import ReadSource  # noqa: E402
+from bowtie_tpu_torch.io.readers import (  # noqa: E402
+    PairedReadSource, ReadSource)
 from bowtie_tpu_torch.utils.rng import fill_seed_caches  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1513,6 +1538,276 @@ def phase_cli_best(rng, work, device, base, genome, rep_starts, seg_len,
     return runs
 
 
+PE_LEN = 50
+PE_PAIRS = 512                 # the pe phase: 2,048 lanes
+THIN_PE_PAIRS = 128
+PE_STEPS = 2000                # the plain version's step budget, dense pair
+THIN_PE_STEPS = 2500           # and on the offRate-13 pair
+# (name, aligner kwargs, policy (khits, mhits), rec_cap, thinned pair)
+PE_POLICIES = (
+    ("-n 2 -k 1 (rec_cap 12)", dict(mode="n", seed_mms=2), (1, INF), 12,
+     False),
+    ("-v 2 -a -m 3 (uncapped)", dict(mode="v", v=2), (INF, 3), None, False),
+    ("-n 2 -k 1 (rec_cap 12), offRate 13", dict(mode="n", seed_mms=2),
+     (1, INF), 12, True))
+CLI_PE_PAIRS = 20_000
+PE_HOST_SLICE = 1000           # pairs held to the V1 host engine
+PE_P_SLICE = 2000              # pairs run with -p 4 and -p 1
+NO_LIBRARY_K10R = ("n/a: no single PyTorch call records a best-first "
+                   "search's ranges")
+
+
+def pe_pairs(rng, genome, rep_starts, seg_len, n, path1, path2):
+    """n pairs of PE_LEN-base mates in --fr orientation as two FASTQ files
+    (names p<i>/1, p<i>/2): fragments of 100-250 bases (5 % of pairs
+    400-600, past -X 250), from either strand, 10 % starting in a repeat
+    copy; 10 % of pairs with one random mate (so rescue runs); each mate
+    with the n phase's mix: 10 % one mismatch, 5 % an N, 5 % cut to 5-9
+    bases, a second mismatch in every fourth mate, three in every third,
+    qualities from Phred 2-40.  -> the pairs, read back."""
+    L = PE_LEN
+    frag = rng.integers(100, 251, n)
+    far = rng.random(n) < 0.05
+    frag[far] = rng.integers(400, 601, int(far.sum()))
+    start = rng.integers(0, len(genome) - 601, n)
+    rep = rng.random(n) < 0.10
+    start[rep] = (rep_starts[rng.integers(0, len(rep_starts), rep.sum())]
+                  + rng.integers(0, seg_len - 600, rep.sum()))
+    left = genome[start[:, None] + np.arange(L)]
+    right = genome[(start + frag - L)[:, None] + np.arange(L)]
+    flip = rng.integers(0, 2, n) == 1       # the fragment's other strand
+    m1 = np.where(flip[:, None], COMP[right[:, ::-1]], left)
+    m2 = np.where(flip[:, None], left, COMP[right[:, ::-1]])
+    codes = np.concatenate([m1, m2])         # mate 1s, then mate 2s
+    rnd = np.flatnonzero(rng.random(n) < 0.10)
+    rnd = rnd + n * rng.integers(0, 2, len(rnd))
+    codes[rnd] = rng.integers(0, 4, (len(rnd), L))
+    m = 2 * n
+    rows = np.arange(m)
+    u = rng.random(m)
+    col = rng.integers(0, L, m)
+    mm = u < 0.10
+    codes[rows[mm], col[mm]] = (codes[rows[mm], col[mm]]
+                                + rng.integers(1, 4, mm.sum())) % 4
+    nk = (u >= 0.10) & (u < 0.15)
+    codes[rows[nk], col[nk]] = 4
+    lens = np.full(m, L, np.int32)
+    sh = (u >= 0.15) & (u < 0.20)
+    lens[sh] = rng.integers(5, 10, sh.sum())
+    r4 = np.arange(0, m, 4)
+    c4 = rng.integers(0, L, len(r4))
+    c = codes[r4, c4]
+    codes[r4, c4] = np.where(c < 4, (c + 1) % 4, c)
+    r3 = np.arange(0, m, 3)
+    c3 = np.argsort(rng.random((len(r3), L)), 1)[:, :3]
+    c = codes[r3[:, None], c3]
+    codes[r3[:, None], c3] = np.where(
+        c < 4, (c + rng.integers(1, 4, c.shape)) % 4, c)
+    quals = rng.integers(2, 41, (m, L)) + 33
+    for path, half in ((path1, 0), (path2, 1)):
+        with open(path, "wb") as f:
+            for i in range(n):
+                j = half * n + i
+                ln = lens[j]
+                f.write(b"@p%d/%d\n%s\n+\n%s\n" % (
+                    i, half + 1, CHARS[codes[j, :ln]].tobytes(),
+                    quals[j, :ln].astype(np.uint8).tobytes()))
+    return list(PairedReadSource([path1], [path2]).pairs())
+
+
+def head_pairs(path1, path2, n, tag, work):
+    """The first n pairs of path1/path2 as two files of their own."""
+    out = []
+    for path, k in ((path1, 1), (path2, 2)):
+        dst = os.path.join(work, f"{tag}_{k}.fq")
+        with open(path, "rb") as f, open(dst, "wb") as g:
+            g.writelines(f.readlines()[:4 * n])
+        out.append(dst)
+    return out
+
+
+def pe_case(name, al, pairs, cap, max_steps, device):
+    """K10r on the recorder's fused lanes of `pairs`, held to its plain
+    version on the card on every lane the plain version finished within
+    max_steps.  -> (row, the run's inputs and outputs)."""
+    a = al.record_inputs(pairs)
+    pair, cfg, host, seeds = a["args"]
+    kw = dict(a["kw"], max_steps=max_steps, rec_cap=cap)
+    out, transitions = bd.run_machine(pair, cfg, host, seeds, **kw)
+    B = len(seeds)
+    cfg_t = {k: torch.from_numpy(v.astype(np.int64)).to(device)
+             for k, v in cfg.items()}
+    pkw = {k: v for k, v in kw.items() if k not in ("maxbts", "max_steps")}
+    pkw.update(nfrag=pair.nfrag, fc=pair.ftab_chars)
+    seeds_h = seeds.cpu().numpy()
+
+    def plain(work=None):
+        st = bd.init_state(B, kw["L"], kw["nd"], kw["ndt"], seeds_h, host,
+                           kw["maxbts"], device)
+        return bd.run_machine_plain(pair, cfg_t, st, chunk=max_steps,
+                                    work=work, **pkw)
+    (st, iters), plain_ms = time_once(plain, device)
+    done = st["mode"] == bd.M_DONE
+    ok = done & ~st["overflow"]
+    require(bool((out["overflow"][done] == st["overflow"][done]).all()),
+            f"pe {name}: K10r and its plain version flag different lanes")
+    err = max_abs_err([(out[k][ok], st[k][ok])
+                       for k in ("hits", "nhits", "mode")])
+    require(err == 0, f"pe {name}: K10r disagrees with its plain version "
+            "on lanes the plain version finished")
+    nh = out["nhits"].long()
+    hits3 = out["hits"].view(B, bd.H_MAX, bd.HIT_W)
+    last = hits3[torch.arange(B, device=device), (nh - 1).clamp(min=0), 6]
+    row = dict(pairs=len(pairs), lanes=B, L=kw["L"], nd=kw["nd"],
+               ndt=kw["ndt"], dense=pair.dense, off_rate=pair.fw.off_rate,
+               rec_cap=cap, max_steps=max_steps,
+               plain_iterations=int(iters),
+               kernel_max_transitions=int(transitions),
+               budget_lanes=int((~done).sum()),
+               overflow_lanes=int(out["overflow"].sum()),
+               ranges=int(nh.sum()), max_ranges=int(nh.max()),
+               capped_lanes=int(((nh > 0) & (last == 2)).sum()),
+               plain_ms=plain_ms, max_abs_err=err)
+    require(row["ranges"] > 0, f"pe {name}: no range recorded")
+    return row, (a, kw, out, plain)
+
+
+def phase_pe(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
+             refs):
+    """K10r against its plain version on the card under two policies on
+    the dense pair and one on the pair thinned to offRate 13; the first
+    timed."""
+    pairs = pe_pairs(rng, genome, rep_starts, seg_len, PE_PAIRS,
+                     os.path.join(work, "pe_1.fq"),
+                     os.path.join(work, "pe_2.fq"))
+    thin = (thinned_index(idx), thinned_index(idx_bw))
+    cases, stats = {}, None
+    for i, (name, akw, (k, m), cap, walk) in enumerate(PE_POLICIES):
+        t = time.time()
+        al = DevicePairedBestAligner(
+            *(thin if walk else (idx, idx_bw)), refs,
+            KPolicy(khits=k, mhits=m), compact=walk, device=device, **akw)
+        require((al.rec_cap == cap), f"pe {name}: rec_cap {al.rec_cap}")
+        row, (a, kw, out, plain) = pe_case(
+            name, al, pairs[:THIN_PE_PAIRS] if walk else pairs, cap,
+            THIN_PE_STEPS if walk else PE_STEPS, device)
+        row["wall_s"] = time.time() - t
+        cases[name] = row
+        if i:
+            continue
+        work_c = {}
+        plain(work_c)
+        row["work"] = work_c
+        nbytes = k10_bytes(work_c, a["args"][2], kw["L"], out)
+        stats = {"K10r": dict(
+            name="K10r best_machine, record mode (K1/K5 inlined)",
+            route="cuda", source=BEST_SOURCE,
+            replaces="bowtie_tpu/align/best_device.py:1030 (_step_main "
+                     "record=True), :1064 _record_range, :854-866 "
+                     "_cfgF/_cfgO",
+            ms=time_ms(lambda: bd.run_machine(*a["args"], **kw), device, 5),
+            plain_ms=row["plain_ms"],
+            **bounds(nbytes, work_c["rank_codes"], work_c["walk_steps"],
+                     work_c["word_codes"],
+                     2 * work_c["rank_ends"] + 2 * work_c["walk_steps"]
+                     + work_c["sa_loads"]),
+            library_ms=None, library=NO_LIBRARY_K10R, max_abs_err=0,
+            lanes=row["lanes"], rank_ends=work_c["rank_ends"],
+            bytes=nbytes, policy=name)}
+    require(cases[PE_POLICIES[0][0]]["capped_lanes"] > 0,
+            "pe: no lane reached rec_cap")
+    walk = cases[PE_POLICIES[-1][0]]
+    require(not walk["dense"] and walk["off_rate"] == 13,
+            "the walk case ran on a dense pair")
+    emit({"phase": "pe", "cases": cases,
+          "ms": {k: v["ms"] for k, v in stats.items()}})
+    return stats
+
+
+def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
+    """The default paired command and -v 2 -a -m 1 -S through the CLI on
+    the card, each run twice, the second counted from zero and traced;
+    every reported mate checked against the genome; the default command on
+    a slice held to the V1 host engine, and -p 4 to -p 1."""
+    genome_chars = CHARS[genome].tobytes()
+    m1 = os.path.join(work, "cli_pe_1.fq")
+    m2 = os.path.join(work, "cli_pe_2.fq")
+    pe_pairs(rng, genome, rep_starts, seg_len, CLI_PE_PAIRS, m1, m2)
+    runs, rows = {}, {}
+    real_build = cli.build_aligner
+    for tag, args, sam in (
+            ("-1/-2 (default: -n 2 -k 1 --fr -X 250)", [], False),
+            ("-1/-2 -v 2 -a -m 1 -S", ["-v", "2", "-a", "-m", "1", "-S"],
+             True)):
+        out = os.path.join(work, "cli_pe%d.out" % len(args))
+        argv = args + ["-x", base, "-1", m1, "-2", m2, out]
+        built = []
+
+        def build(*a, **k):
+            built.append(real_build(*a, **k))
+            return built[-1]
+        cli.build_aligner = build
+        try:
+            first_s = run_cli(argv, device)[0]
+            ((wall, err), busy), launches = counted(lambda: profiled(
+                lambda: run_cli(argv, device)), device)
+        finally:
+            cli.build_aligner = real_build
+        al = built[-1]
+        require(isinstance(al, DevicePairedBestAligner),
+                f"cli {tag} built {type(al).__name__}")
+        require(launches["best_record"] > 0 and launches["best_pack"] > 0,
+                f"cli {tag} launched {launches}")
+        checked = (check_sam_md if sam else check_verbose_mm)(out,
+                                                              genome_chars)
+        require(checked > 0, f"cli {tag}: no alignments")
+        rows[tag] = {"wall_s": wall, "first_run_s": first_s,
+                     "pairs_per_s": CLI_PE_PAIRS / wall,
+                     "device_busy_s": busy, "device_busy_share": busy / wall,
+                     "launches": launches, "fallbacks": al.fallbacks,
+                     "escalations": al.escalations, "rec_cap": al.rec_cap,
+                     "mates_checked": checked,
+                     "summary": err.strip().splitlines()}
+        runs["cli " + tag] = launches
+    # the default command on a slice: the card's bytes are the V1 host
+    # engine's
+    h1, h2 = head_pairs(m1, m2, PE_HOST_SLICE, "pe_host", work)
+    outs = {}
+    for name, host in (("card", False), ("host", True)):
+        out = os.path.join(work, f"pe_slice.{name}")
+        cli.build_aligner = (lambda *a, _h=host, **k: real_build(
+            *a, **{**k, "host_engine": k.get("host_engine", False) or _h}))
+        try:
+            t = time.time()
+            err = run_cli(["-x", base, "-1", h1, "-2", h2, out], device)[1]
+            outs[name] = (open(out, "rb").read(), err.strip().splitlines(),
+                          time.time() - t)
+        finally:
+            cli.build_aligner = real_build
+    require(outs["card"][:2] == outs["host"][:2], "cli_pe: the card's "
+            f"records of the first {PE_HOST_SLICE} pairs differ from the V1 "
+            "host engine's")
+    # -p 4 against -p 1 on the card
+    p1, p2 = head_pairs(m1, m2, PE_P_SLICE, "pe_p", work)
+    pouts = {}
+    for p in ("1", "4"):
+        out = os.path.join(work, f"pe_p{p}.out")
+        t = time.time()
+        err = run_cli(["-p", p, "-x", base, "-1", p1, "-2", p2, out],
+                      device)[1]
+        pouts[p] = (open(out, "rb").read(), err.strip().splitlines(),
+                    time.time() - t)
+    require(pouts["4"][:2] == pouts["1"][:2],
+            "cli_pe: -p 4 writes other records than -p 1")
+    emit({"phase": "cli_pe", "pairs": CLI_PE_PAIRS, "gpu": gpu,
+          "runs": rows, "host_slice_pairs": PE_HOST_SLICE,
+          "host_slice_bytes": len(outs["host"][0]),
+          "host_slice_s": {k: v[2] for k, v in outs.items()},
+          "p_slice_pairs": PE_P_SLICE,
+          "p_slice_s": {k: v[2] for k, v in pouts.items()}})
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1560,11 +1855,16 @@ def main() -> int:
                             idx, idx_bw))
     runs.update(phase_cli_best(rng, work, device, base, genome, rep_starts,
                                seg_len, gpu))
+    refs = unpack_reference(*read_bitpair_reference(base), plen=idx.plen)
+    stats.update(phase_pe(rng, work, device, genome, rep_starts, seg_len,
+                          idx, idx_bw, refs))
+    runs.update(phase_cli_pe(rng, work, device, base, genome, rep_starts,
+                             seg_len, gpu))
     counter = {"K2": "exact_ranges", "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
                "K9": "derive_b_jobs", "K10": "best_machine",
-               "K11": "best_pack"}
+               "K10r": "best_record", "K11": "best_pack"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
     for key, entry in stats.items():

@@ -5,8 +5,10 @@ thinned so that most walks pass MAX_WALK and end with ok=False; K6, K7 and
 K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
 walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
 derives; K10 and K11 (the best-first machine) under -v and seeded
-policies, dense and walk-left; and the CLI on the card (-v 0/1/2/3, -n,
---best, -M, --sanity, --stats) must write what it writes on the CPU.
+policies, dense and walk-left; K10r (its record mode, the paired
+recorder's fused fw-DAG + rc-DAG run) capped and uncapped; and the CLI on
+the card (-v 0/1/2/3, -n, --best, -M, --sanity, --stats, and paired input
+with -p) must write what it writes on the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one; on the
 card (where JAX, which tests/conftest.py imports, may be absent) run
 
@@ -296,3 +298,106 @@ def test_cli_on_card_matches_cpu(card, tmp_path, args):
         outs.append((b"".join(body),
                      re.sub(r"wall time: .*", "", err.getvalue())))
     assert outs[0] == outs[1]
+
+
+def _pairs(refs, n, seed, tmp_path):
+    """Seeded --fr pairs of _reads' genome: fragments of 60-200 bases,
+    mates of 18-44 bases with 0-2 mismatches, every 6th pair with a random
+    mate; written as -1/-2 FASTQ files and read back."""
+    from bowtie_tpu_torch.io.readers import PairedReadSource
+    rng = np.random.default_rng(seed)
+    f1, f2 = [], []
+    for k in range(n):
+        r = refs[k % len(refs)]
+        frag = int(rng.integers(60, min(201, len(r))))
+        p = int(rng.integers(0, len(r) - frag + 1))
+        l1, l2 = (int(x) for x in rng.integers(18, 45, 2))
+        a = np.minimum(r[p:p + l1], 3).astype(np.uint8)
+        b = (3 - np.minimum(r[p + frag - l2:p + frag], 3)[::-1]).astype(
+            np.uint8)
+        if k % 6 == 5:
+            b = rng.integers(0, 4, l2).astype(np.uint8)
+        for q in (a, b):
+            for _ in range(k % 3):
+                q[int(rng.integers(len(q)))] = rng.integers(0, 4)
+        for f, q, m in ((f1, a, 1), (f2, b, 2)):
+            qual = "".join(chr(33 + int(x)) for x in rng.integers(5, 41,
+                                                                  len(q)))
+            f.append(f"@p{k}/{m}\n{''.join('ACGTN'[c] for c in q)}\n+\n"
+                     f"{qual}\n")
+    m1, m2 = tmp_path / "m1.fq", tmp_path / "m2.fq"
+    m1.write_text("".join(f1))
+    m2.write_text("".join(f2))
+    return list(PairedReadSource([str(m1)], [str(m2)]).pairs()), m1, m2
+
+
+@pytest.mark.parametrize("kw,cap,dense", [
+    (dict(mode="n", seed_mms=2), 12, True),
+    (dict(mode="v", v=2), None, True),
+    (dict(mode="n", seed_mms=3, seed_len=20), None, False),
+    (dict(mode="v", v=3), 12, False)],
+    ids=["n2_cap12", "v2_uncapped", "n3_l20_uncapped_walk",
+         "v3_cap12_walk"])
+def test_record_kernel_matches_plain(card, tmp_path, kw, cap, dense):
+    """K10r equals its plain version on the recorder's fused lanes (every
+    pair's four streams, fw-DAG and rc-DAG in one launch) on every lane
+    the plain version finishes without overflow, overflow flags alike."""
+    from bowtie_tpu_torch.align import best_device as tbd
+    from bowtie_tpu_torch.align.pe_device import DevicePairedBestAligner
+    from bowtie_tpu_torch.align.policy import KPolicy
+    idx, refs = card
+    pairs, _m1, _m2 = _pairs(refs, 300, 17, tmp_path)
+    al = DevicePairedBestAligner(idx, read_ebwt(BASE + ".rev"), refs,
+                                 KPolicy(), compact=not dense, device="cuda",
+                                 **kw)
+    a = al.record_inputs(pairs)
+    pair, cfg, host, seeds = a["args"]
+    kernels.reset_launches()
+    out, _ = tbd.run_machine(*a["args"], **a["kw"], rec_cap=cap)
+    pkw = dict(a["kw"])
+    maxbts = pkw.pop("maxbts")
+    pkw.pop("max_steps")
+    st = tbd.init_state(len(seeds), pkw["L"], pkw["nd"], pkw["ndt"],
+                        seeds.cpu().numpy(), host, maxbts, "cuda")
+    cfg_t = {c: torch.from_numpy(v.astype(np.int64)).cuda()
+             for c, v in cfg.items()}
+    st, _ = tbd.run_machine_plain(pair, cfg_t, st, chunk=60000,
+                                  nfrag=pair.nfrag, fc=pair.ftab_chars,
+                                  rec_cap=cap, **pkw)
+    assert bool((st["mode"] == tbd.M_DONE).all())
+    assert torch.equal(out["overflow"], st["overflow"])
+    ok = ~st["overflow"]
+    for key in ("hits", "nhits", "mode"):
+        assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
+    assert int(out["nhits"].sum()) > 0
+    assert len(seeds) == 4 * len(pairs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["best_record"] == 1
+    assert kernels.LAUNCHES["best_machine"] == 0
+
+
+@pytest.mark.parametrize("args", [[], ["-v", "2", "-a", "-m", "3", "-S"],
+                                  ["-n", "1", "-p", "2"],
+                                  ["-n", "2", "-M", "1", "--sanity",
+                                   "--stats"],
+                                  ["-v", "1", "--best", "-k", "2"]],
+                         ids=["n2_default", "v2_a_m3_S", "n1_p2",
+                              "n2_M1_sanity_stats", "v1_best_k2_host_v2"])
+def test_pe_cli_on_card_matches_cpu(card, tmp_path, args):
+    """Paired runs on the card (the recorded V1 engine; V2 on the host for
+    --best) write what they write on the CPU."""
+    from bowtie_tpu_torch.cli import align as cli
+    idx, refs = card
+    _pairs_, m1, m2 = _pairs(refs, 400, 23, tmp_path)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"out.{dev}"
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            assert cli.main(args + ["-1", str(m1), "-2", str(m2), BASE,
+                                    str(out)], device=dev) == 0
+        body = [ln for ln in out.read_bytes().splitlines(keepends=True)
+                if not ln.startswith(b"@PG")]
+        outs.append((b"".join(body),
+                     re.sub(r"wall time: .*", "", err.getvalue())))
+    assert outs[0] == outs[1]
+    assert outs[0][0]

@@ -149,6 +149,9 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = list(_port_files())
     assert len(files) > 20
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"bowtie_tpu_torch/align/pe_device.py",
+            "bowtie_tpu_torch/align/best_paired.py"} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "bowtie_tpu"}, path
@@ -179,47 +182,109 @@ def test_wrappers_refuse_mixed_devices():
 
 
 def test_launcher_reports_unported_mode():
+    """Paired input is ported: the launcher takes it, and without a card
+    it stops naming CUDA, never falling back to the CPU."""
     import subprocess
     import sys
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "bin", "bowtie-tpu-torch"),
          "-v", "3", "--interleaved", "x.fq", "-x", GOLD],
-        capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 1
-    assert "paired-end input is not yet ported to bowtie_tpu_torch" in \
-        proc.stderr
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "not yet ported" not in proc.stderr
+    assert "CUDA" in proc.stderr
 
 
-# (test id, flags, the mode the message names): every single-end mode runs
-# (the best-first modes on align/best_device.py); what is refused is
-# paired input in any of its forms, whatever the mode flags with it
-PE = ["-1", "a.fq", "-2", "b.fq"]
+# (test id, flags, the input they read): the flag sets that were refused
+# while paired input was not ported, each now held to the JAX CLI on paired
+# fixtures drawn from the small index's genome: -1/-2 files (PE), a --12
+# file (TAB) and an --interleaved file (IL)
+PE = ["-1", "M1", "-2", "M2"]
 UNPORTED = [
-    ("-n", ["-n", "2", "--best"] + PE, "paired-end input"),
-    ("-v 1", ["-v", "1", "--best", "--12", "t.tab"], "paired-end input"),
-    ("-v 2", ["-v", "2", "-M", "1", "--interleaved", "i.fq"],
-     "paired-end input"),
-    ("-v 3", ["-v", "3"] + PE, "paired-end input"),
-    ("--best", ["-v", "0", "--best", "-1", "a.fq"], "paired-end input"),
-    ("-M", ["-v", "0", "-M", "1", "-2", "b.fq"], "paired-end input"),
-    ("paired-end input", ["-v", "0", "-1", "a.fq", "-2", "b.fq"],
-     "paired-end input"),
-    ("--sanity", ["-n", "2", "--sanity", "-M", "1"] + PE,
-     "paired-end input"),
-    ("--stats", ["-v", "3", "--stats", "--12", "t.tab"], "paired-end input"),
-    ("-v 2 --strata", ["-v", "2", "--best", "--strata", "-a"] + PE,
-     "paired-end input"),
+    ("-n", ["-n", "2", "--best"] + PE),
+    ("-v 1", ["-v", "1", "--best", "--12", "TAB"]),
+    ("-v 2", ["-v", "2", "-M", "1", "--interleaved", "IL"]),
+    ("-v 3", ["-v", "3"] + PE),
+    ("--best", ["-v", "0", "--best"] + PE),
+    ("-M", ["-v", "0", "-M", "1"] + PE),
+    ("paired-end input", ["-v", "0"] + PE),
+    ("--sanity", ["-n", "2", "--sanity", "-M", "1"] + PE),
+    ("--stats", ["-v", "3", "--stats", "--12", "TAB"]),
+    ("-v 2 --strata", ["-v", "2", "--best", "--strata", "-a"] + PE),
 ]
 
 
-@pytest.mark.parametrize("case,args,mode", UNPORTED,
-                         ids=[c for c, _, _ in UNPORTED])
-def test_unported_modes_exit_1(case, args, mode, capsys):
-    from bowtie_tpu_torch.cli import align as cli
-    rc = cli.main(args + [GOLD, "-c", "ACGTACGTAC"], device="cpu")
-    assert rc == 1
-    assert f"{mode} is not yet ported to bowtie_tpu_torch" in \
-        capsys.readouterr().err
+@pytest.fixture(scope="module")
+def pe_inputs(tmp_path_factory):
+    """40 seeded pairs from the small index's genome (fragments of 80-220
+    bases, mates of 20-36 bases with 0-2 mismatches, every 7th pair with a
+    random mate) as -1/-2 FASTQ files, a --12 file with three unpaired
+    records among them, and an interleaved FASTQ file."""
+    from bowtie_tpu_torch.utils.alphabet import codes_to_seq
+    d = tmp_path_factory.mktemp("torch_host_pe")
+    recs, packed = t_io.read_bitpair_reference(GOLD)
+    refs = t_io.unpack_reference(recs, packed,
+                                 plen=t_io.read_ebwt(GOLD).plen)
+    rng = np.random.default_rng(21)
+    m1s, m2s, tab, il = [], [], [], []
+    for k in range(40):
+        ref = refs[k % len(refs)]
+        frag = int(rng.integers(80, min(221, len(ref))))
+        p = int(rng.integers(0, len(ref) - frag + 1))
+        ln1, ln2 = (int(x) for x in rng.integers(20, 37, 2))
+        a = np.minimum(ref[p:p + ln1], 3).astype(np.uint8)
+        b = (3 - np.minimum(ref[p + frag - ln2:p + frag], 3)[::-1]
+             ).astype(np.uint8)
+        if k % 7 == 3:
+            b = rng.integers(0, 4, ln2).astype(np.uint8)
+        for q in (a, b):
+            for _ in range(k % 3):
+                q[int(rng.integers(len(q)))] = rng.integers(0, 4)
+        s1, s2 = codes_to_seq(a), codes_to_seq(b)
+        q1 = "".join(chr(33 + int(x)) for x in rng.integers(5, 41, ln1))
+        q2 = "".join(chr(33 + int(x)) for x in rng.integers(5, 41, ln2))
+        m1s.append(f"@q{k}/1\n{s1}\n+\n{q1}\n")
+        m2s.append(f"@q{k}/2\n{s2}\n+\n{q2}\n")
+        il += [m1s[-1], m2s[-1]]
+        tab.append(f"q{k}\t{s1}\t{q1}\t{s2}\t{q2}\n")
+        if k % 13 == 5:
+            tab.append(f"solo{k}\t{s1}\t{q1}\n")
+    files = {}
+    for key, lines in (("M1", m1s), ("M2", m2s), ("TAB", tab), ("IL", il)):
+        (d / key).write_text("".join(lines))
+        files[key] = str(d / key)
+    return files
+
+
+@pytest.mark.parametrize("case,args", UNPORTED,
+                         ids=[c for c, _ in UNPORTED])
+def test_unported_modes_exit_1(case, args, pe_inputs, tmp_path, monkeypatch):
+    """Each flag set that was refused while paired input was not ported
+    now runs, and its hits and summary equal the JAX CLI's (its host
+    engines, which are what it picks on a CPU backend) byte for byte."""
+    import contextlib
+    import io
+    from bowtie_tpu.cli import align as jcli
+    from bowtie_tpu_torch.cli import align as tcli
+    argv = [pe_inputs.get(a, a) for a in args]
+    outs = {}
+    for name, main, kw in (("jax", jcli.main, {}),
+                           ("torch", tcli.main, {"device": "cpu"})):
+        if name == "jax":
+            monkeypatch.setenv("BOWTIE_TPU_HOST_ENGINE", "1")
+        else:
+            monkeypatch.delenv("BOWTIE_TPU_HOST_ENGINE", raising=False)
+        out = str(tmp_path / name)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = main(argv + [GOLD, out], **kw)
+        assert rc in (0, None), (name, err.getvalue())
+        summary = [ln for ln in err.getvalue().splitlines()
+                   if ln.startswith(("# ", "Reported ", "No alignments"))]
+        outs[name] = (open(out, "rb").read(), summary)
+    assert outs["torch"] == outs["jax"]
+    assert outs["torch"][0]                   # pairs were reported
 
 
 def _fastq_variants(tmp_path):
