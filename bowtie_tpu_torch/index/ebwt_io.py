@@ -89,10 +89,23 @@ class EbwtIndex:
     # --- derived, built lazily ---
     _ftab_hi: np.ndarray = None   # resolved ftabHi for every slot
     _ftab_lo: np.ndarray = None
+    _occ: np.ndarray = None       # [nck, 4] uint32 checkpoints
+
+    OCC_BLOCK = 128  # rows per occ checkpoint in the flat layout
 
     @property
     def bwt_len(self) -> int:
         return self.length + 1
+
+    def occ_checkpoints(self) -> np.ndarray:
+        """occ[k, c] = count of stored code c in bwt[0 : k*OCC_BLOCK),
+        uint32 [nblocks+1, 4].  Counts are over *stored* codes, i.e. the
+        '$' at row zoff counts as an 'A'; rank queries must correct for
+        it (see align/golden.py)."""
+        if self._occ is None:
+            from .arrays import build_occ_checkpoints
+            self._occ = build_occ_checkpoints(self.bwt, self.OCC_BLOCK)
+        return self._occ
 
     # ------------------------------------------------------------------
     # derived structures
@@ -248,8 +261,33 @@ def read_ebwt(basename: str, load_offs: bool = True) -> EbwtIndex:
     )
 
 
+def read_embedded_occ(basename: str) -> np.ndarray:
+    """Parse the per-side-pair occ counters embedded in `.1.ebwt`.
+
+    Returns [nPairs, 4] counts of (A,C,G,T) in BWT rows [0, 224 + p*448)
+    — used only for cross-checking recomputed checkpoints against
+    bowtie-build's own counters (sanityCheckUpToSide, ebwt.h:1583).
+    """
+    idx = read_ebwt(basename, load_offs=False)
+    with open(basename + ".1.ebwt", "rb") as f:
+        data = f.read()
+    # recompute where ebwt[] starts in the file
+    hdr = 4 + 4 + 20 + 4 + 4 * idx.npat + 4 + 12 * idx.nfrag
+    bwt_sz = idx.length // 4 + 1
+    n_pairs = (bwt_sz + 2 * SIDE_BWT_SZ - 1) // (2 * SIDE_BWT_SZ)
+    raw = np.frombuffer(data[hdr:hdr + n_pairs * 128], dtype=np.uint8)
+    sides = raw.reshape(n_pairs * 2, SIDE_SZ)
+    cnts = sides[:, SIDE_BWT_SZ:].copy().view("<u4")  # [2P, 2]
+    out = np.zeros((n_pairs, 4), dtype=np.uint32)
+    out[:, 0:2] = cnts[0::2]   # A, C after backward sides
+    out[:, 2:4] = cnts[1::2]   # G, T after forward sides
+    return out
+
+
 def read_bitpair_reference(basename: str):
-    """Read `<basename>.3.ebwt` (RefRecords) + `.4.ebwt` (packed bases).
+    """Read `<basename>.3.ebwt` (RefRecords) + `.4.ebwt` (packed bases),
+    or `.3.ebwtl`/`.4.ebwtl` beside a large index, whose record fields
+    are 64-bit.
 
     Format: reference.h:110-130 + ref_read.h RefRecord::write.
     Returns (records, packed) where records is a list of
@@ -257,22 +295,29 @@ def read_bitpair_reference(basename: str):
     bases, 4 per byte, low bit-pair first, 8-bit aligned per stretch
     boundary is NOT applied (bowtie packs contiguously; cumsz is
     per-stretch-rounded only for colorspace — plain DNA is contiguous).
+    bowtie_tpu's reader opens `.3.ebwt` only, so it finds no reference
+    beside an `.ebwtl` index (ROADMAP, queue 3); bowtie reads `.3.ebwtl`.
     """
-    with open(basename + ".3.ebwt", "rb") as f:
+    ext, osz = ".ebwt", 4
+    if (not os.path.exists(basename + ".3.ebwt")
+            and os.path.exists(basename + ".3.ebwtl")):
+        ext, osz = ".ebwtl", 8
+    with open(basename + ".3" + ext, "rb") as f:
         sentinel = np.frombuffer(_read_exact(f, 4), dtype="<u4")[0]
         if sentinel == 1:
-            u4 = "<u4"
+            bo = "<"
         elif sentinel == 0x01000000:
-            u4 = ">u4"
+            bo = ">"
         else:
-            raise ValueError("bad sentinel in .3.ebwt")
-        sz = int(np.frombuffer(_read_exact(f, 4), dtype=u4)[0])
+            raise ValueError(f"bad sentinel in .3{ext}")
+        U = bo + ("u4" if osz == 4 else "u8")
+        sz = int(np.frombuffer(_read_exact(f, osz), dtype=U)[0])
         records = []
         for _ in range(sz):
-            off, ln = np.frombuffer(_read_exact(f, 8), dtype=u4)
+            off, ln = np.frombuffer(_read_exact(f, 2 * osz), dtype=U)
             first = _read_exact(f, 1)[0] != 0
             records.append((int(off), int(ln), first))
-    with open(basename + ".4.ebwt", "rb") as f:
+    with open(basename + ".4" + ext, "rb") as f:
         packed = np.frombuffer(f.read(), dtype=np.uint8)
     return records, packed
 

@@ -4,10 +4,11 @@ The sources compile at first use, with nvcc for sm_90a (one nvcc per
 source, all started together, then one link), into
 ``csrc/build/libbtkernels.so`` (listed in .gitignore), and load through
 ctypes; each C entry point launches one kernel on the stream it is given
-and returns ``cudaGetLastError()``.  The wrappers in ``align/`` check
-their tensors, allocate outputs, call ``launch`` and count launches in
-``LAUNCHES``.  Nothing here runs at import time: a CPU-only install can
-import every module.
+and returns ``cudaGetLastError()`` (``bt_sa_round`` launches the several
+kernels of one K16 round and returns the first error).  The wrappers in
+``align/`` and ``build/sa.py`` check their tensors, allocate outputs,
+call ``launch`` and count launches in ``LAUNCHES``.  Nothing here runs at
+import time: a CPU-only install can import every module.
 """
 from __future__ import annotations
 
@@ -22,14 +23,15 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
-SOURCES = ("exact.cu", "dfs.cu", "best.cu")
+SOURCES = ("exact.cu", "dfs.cu", "best.cu", "sa.cu")
 HEADERS = ("fm.cuh",)
 
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
             "resolve_rows_sa": 0, "one_row": 0, "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
-            "best_machine": 0, "best_record": 0, "best_pack": 0}
+            "best_machine": 0, "best_record": 0, "best_pack": 0,
+            "sa_round": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -149,6 +151,8 @@ _SIGNATURES = {
     "bt_best_pack": [_P] * 7 + [ctypes.c_int, _P, _P],
     # (nd, ndt) -> the width of the machine's per-lane init row
     "bt_best_init_width": [ctypes.c_int, ctypes.c_int],
+    # (r, n1, k, big, nr, order, maxg, scratch, stream)
+    "bt_sa_round": [_P] + [ctypes.c_int] * 3 + [_P] * 4 + [_P],
 }
 
 
@@ -162,6 +166,8 @@ def lib():
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            so.bt_sa_scratch_bytes.argtypes = [ctypes.c_int]
+            so.bt_sa_scratch_bytes.restype = ctypes.c_int64
             so.bt_error_string.argtypes = [ctypes.c_int]
             so.bt_error_string.restype = ctypes.c_char_p
             _lib = so

@@ -1,6 +1,6 @@
-"""Compile and load the host libraries of native/ with g++: SA-IS
-(sais.cpp) for the builder and the FASTQ parser (fastio.cpp) for the
-reader.
+"""Compile and load the host libraries of native/ with g++: SA-IS and the
+streaming writer's extraction pass (sais.cpp) for the builder, and the
+FASTQ parser (fastio.cpp) for the reader.
 
 Each library is built at first use into ``native/build/`` beside this file
 (listed in .gitignore) and rebuilt when its source is newer.  A failed
@@ -49,7 +49,7 @@ def build_fastio(force: bool = False) -> str:
 
 
 def load_sais():
-    """The SA-IS library, built on first use."""
+    """The SA-IS library (with stream_extract), built on first use."""
     with _lock:
         if "sais" not in _cached:
             lib = ctypes.CDLL(build_sais())
@@ -59,6 +59,11 @@ def load_sais():
             lib.sais_bowtie.restype = ctypes.c_int
             lib.sais_bowtie.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                         ctypes.c_void_p]
+            lib.stream_extract.restype = None
+            lib.stream_extract.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
             _cached["sais"] = lib
         return _cached["sais"]
 

@@ -157,4 +157,36 @@ int sais_bowtie(const uint8_t* codes, int64_t n, int64_t* SA_out) {
     return sais_bowtie_t<int64_t>(codes, n, SA_out);
 }
 
+// Streaming-writer extraction pass (buildToDisk analog, ebwt.h:3985):
+// for each SA row, emit the BWT char (text[sa-1], '$'->A) and the
+// leading fc-mer word (-1 for suffixes shorter than fc).  Reads the
+// 2-bit big-endian packed text (32 bases/uint64, base j at bits
+// [62-2j,64-2j)) so each row costs ~1-2 cache lines instead of
+// fc+1 byte gathers into the full text.
+void stream_extract(const uint64_t* packed, const int64_t* sa,
+                    int64_t nrows, int64_t length, int fc,
+                    uint8_t* bwt_out, int64_t* word_out) {
+    const uint64_t kshift = 64 - 2 * (uint64_t)fc;
+    for (int64_t i = 0; i < nrows; i++) {
+        int64_t p = sa[i];
+        if (i + 8 < nrows) {  // hide DRAM latency across iterations
+            int64_t pp = sa[i + 8];
+            __builtin_prefetch(&packed[(pp > 0 ? pp - 1 : 0) >> 5]);
+            __builtin_prefetch(&packed[pp >> 5]);
+        }
+        int64_t prev = p > 0 ? p - 1 : 0;
+        uint64_t w = packed[prev >> 5];
+        uint8_t c = (uint8_t)((w >> (62 - 2 * (prev & 31))) & 3);
+        bwt_out[i] = p > 0 ? c : 0;
+        if (length - p >= fc) {
+            uint64_t r2 = 2 * (uint64_t)(p & 31);
+            uint64_t hi = packed[p >> 5] << r2;
+            uint64_t lo = (packed[(p >> 5) + 1] >> (63 - r2)) >> 1;
+            word_out[i] = (int64_t)((hi | lo) >> kshift);
+        } else {
+            word_out[i] = -1;
+        }
+    }
+}
+
 }  // extern "C"

@@ -12,7 +12,25 @@ Phases, each printing one JSON line:
              copies of a 2 kb segment, built with the port's builder at
              bowtie-build's defaults (-o 5 -t 10, fw + mirror), loaded
              onto the card with and without a dense SA.
-3. kernels - 2^20 seeded 36 bp reads (2^21 strands): K2 exact search,
+3. build   - the build and inspect tools on the card: phase index's genome
+             as FASTA through bowtie_tpu_torch.cli.build.main(["--jax-sa",
+             ...]) with the launch counters zeroed just before and read
+             just after (the suffix arrays by prefix doubling, one K16
+             sa_round launch a round); all six .ebwt files must equal
+             phase index's host SA-IS files byte for byte.  Then
+             cli.inspect.main on that index: its FASTA must decode to the
+             genome and -s must name the record with its length.  K16
+             held to its plain version on the card on every round of the
+             forward text (nr, order, maxg); then, on a seeded
+             100,000,000 bp text (the size of the C. elegans genome), the
+             whole device SA against host SA-IS (equal, both timed) and
+             the first and last rounds timed: K16 median of 20, the plain
+             round median of 5, torch.sort(keys, stable=True) on the same
+             packed keys median of 20 (the library yardstick, which the
+             port never calls).  Its inputs come from a generator of its
+             own (seed + 1), so every later phase reads what it read
+             before this phase existed.
+4. kernels - 2^20 seeded 36 bp reads (2^21 strands): K2 exact search,
              K3 resolve (walk-left over K2's top rows, and dense SA) and
              K4 (fused one-row path), each held equal element for element
              to its plain PyTorch version on the card and timed with CUDA
@@ -20,7 +38,7 @@ Phases, each printing one JSON line:
              median of 5).  K3 walk and K4 are also held to their plain
              versions on the index with its SA sample thinned to offRate
              13, where most walks pass MAX_WALK and end with ok=False.
-4. cli     - the main path: 100,000 such reads as FASTQ through
+5. cli     - the main path: 100,000 such reads as FASTQ through
              bowtie_tpu_torch.cli.align.main on the card (-v 0 -k 1
              verbose, through K4; -v 0 -a -m 3 -S, through K2 and K3
              walk), each with the launch counters zeroed just before and
@@ -32,7 +50,7 @@ Phases, each printing one JSON line:
              library (ExactAligner) with a dense-SA index, counted on its
              own: the only run of K3 dense, which no CLI path reaches; it
              must report what the CLI run reported.
-5. dfs     - the DFS machine (-v 1/2): 16,384 such reads with a second
+6. dfs     - the DFS machine (-v 1/2): 16,384 such reads with a second
              mismatch in every fourth.  K6 (derive_rows), K7 (dfs_machine,
              K5 inlined) and K8 (dfs_pack) each held to its plain version
              on the card, exactly, for -v 1 -k 1, -v 2 -a -m 3 and -v 2 -a
@@ -47,13 +65,13 @@ Phases, each printing one JSON line:
              mismatches.  The -v 2 -a -m 3 tables are timed; K7's and
              K8's bytes are those the run reads and writes, counted by
              the plain versions.
-6. cli_v   - 100,000 such reads through the CLI on the card, -v 1 -k 1
+7. cli_v   - 100,000 such reads through the CLI on the card, -v 1 -k 1
              (verbose) and -v 2 -a -m 3 -S, each counted from zero and
              traced by torch.profiler for the device's busy share, with
              the lanes re-run on the host oracle counted; the records of
              the first 1,000 reads must equal the CPU CLI's byte for byte,
              and the library aligner's results on them the host oracle's.
-7. n       - bowtie's default seeded mode: 16,384 reads of the cli_v mix
+8. n       - bowtie's default seeded mode: 16,384 reads of the cli_v mix
              with three mismatches in every third read and qualities from
              Phred 2-40.  Under -n 2 -k 1, -n 3 -l 20 -a -m 3 and -n 1
              --nomaqround -e 40, launch A runs on the card (K6, K7), then
@@ -63,7 +81,7 @@ Phases, each printing one JSON line:
              except at its reported mismatches.  K9 is timed under -n 2
              -k 1; its bytes are the lanes' scalars, their counted partial
              rows and the [B, 36, NJF] table it writes (k9_bytes).
-8. cli_n   - 100,000 such reads through the CLI on the card, bowtie's
+9. cli_n   - 100,000 such reads through the CLI on the card, bowtie's
              default command (no mode flag: -n 2 -l 28 -e 70 -k 1,
              verbose) and -n 2 -a -m 3 -S, each counted from zero and
              traced, held to the CPU CLI and the host oracle on the first
@@ -71,7 +89,7 @@ Phases, each printing one JSON line:
              (every batch also through the host oracle) and -n 2 on the
              in-repo .ebwtl index (tests/golden/small_index_l) against the
              CPU CLI, both off the main path.
-9. best    - the best-first machine: 2,048 reads of the n phase's mix.
+10. best    - the best-first machine: 2,048 reads of the n phase's mix.
              K10 (best_machine) and K11 (best_pack) each held exactly to
              its plain version on the card under -v 2 -k 3 --best --strata,
              -v 3 -m 1 --best and -n 2 -M 1 --best on the dense pair (plain
@@ -84,13 +102,13 @@ Phases, each printing one JSON line:
              substring except at its reported mismatches.  The first policy
              is timed; K10's bytes are those the run reads and writes,
              counted by the plain version.
-10. cli_best - 50,000 such reads through the CLI on the card, -v 2 -m 1
+11. cli_best - 50,000 such reads through the CLI on the card, -v 2 -m 1
              --best --strata -S and -n 2 --best -k 1 (verbose), each counted
              from zero and traced, with the reads re-run on the host engine
              counted; every hit must equal its reference substring except at
              its reported mismatches, and the records of the first 400
              reads must equal the CPU CLI's byte for byte.
-11. pe     - the paired recorder: 512 pairs of 50 bp mates (pe_pairs: the
+12. pe     - the paired recorder: 512 pairs of 50 bp mates (pe_pairs: the
              n phase's error and quality mix, fragments of 100-250 bases,
              10 % with a random mate, 5 % 400-600 apart), all four anchor
              streams of each in one fused launch (2,048 lanes).  K10r
@@ -101,7 +119,7 @@ Phases, each printing one JSON line:
              pair, and -n 2 -k 1 on 128 pairs with the pair thinned to
              offRate 13 (walk-left).  The first policy is timed; K10r's
              bytes are those the run reads and writes (k10_bytes).
-12. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
+13. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
              default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
              --fr -X 250) and -v 2 -a -m 1 -S, each run twice and the
              second counted from zero and traced, with the pairs re-run on
@@ -113,11 +131,12 @@ Phases, each printing one JSON line:
              True)), and with -p 4 on the first 2,000 what it writes with
              -p 1.
 
-Then the {"kernels": [...]} line (launches: the CLI runs; K3 dense's
-library-run launches beside its 0), the script's total seconds, the
-nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
-raises and the script exits non-zero without that last line.  It needs
-one CUDA device and writes only under .smoke/ in the checkout.
+Then the {"kernels": [...]} line (launches: the CLI runs, cli build
+included; K3 dense's library-run launches beside its 0), the script's
+total seconds, the nvidia-smi line, and last {"ok": true, "device":
+{...}}.  Any failure raises and the script exits non-zero without that
+last line.  It needs one CUDA device and writes only under .smoke/ in
+the checkout.
 """
 from __future__ import annotations
 
@@ -157,8 +176,11 @@ from bowtie_tpu_torch.align.exact import (  # noqa: E402
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
     ExactAligner, one_row, one_row_plain)
 from bowtie_tpu_torch.align.policy import INF, KPolicy  # noqa: E402
+from bowtie_tpu_torch.build import sa as bsa  # noqa: E402
 from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
 from bowtie_tpu_torch.cli import align as cli  # noqa: E402
+from bowtie_tpu_torch.cli import build as build_cli  # noqa: E402
+from bowtie_tpu_torch.cli import inspect as inspect_cli  # noqa: E402
 from bowtie_tpu_torch.index.arrays import from_ebwt  # noqa: E402
 from bowtie_tpu_torch.index.ebwt_io import (  # noqa: E402
     read_bitpair_reference, read_ebwt, unpack_reference)
@@ -201,6 +223,7 @@ NO_LIBRARY_K9 = ("n/a: no single PyTorch call derives the launch-B job "
 NO_LIBRARY_K10 = ("n/a: no single PyTorch call runs a best-first "
                   "branch-and-bound search")
 BEST_SOURCE = "bowtie_tpu_torch/csrc/best.cu"
+SA_SOURCE = "bowtie_tpu_torch/csrc/sa.cu"
 COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -365,6 +388,160 @@ def phase_index(rng, work, device, genome_len, copies, seg_len):
           "device_bytes": fm.nbytes(),
           "device_bytes_dense_sa": fm_sa.nbytes()})
     return genome, rep_starts, base, idx, fm, fm_sa
+
+
+# K16 at bowtie-build's common input size: the C. elegans genome, ~100 Mbp
+SA_BIG_BP = 100_000_000
+
+
+def k16_bounds(n1: int) -> dict:
+    """The least time one prefix-doubling round over n1 ranks could take:
+    the larger of its bytes (r read once, nr and order written once, 4
+    bytes each, and maxg) over the HBM rate, and its integer operations
+    (per element: the key's multiply and add, ceil(log2 n1) comparisons
+    that ordering n1 keys needs at least, one comparison to renumber)
+    over the int32 rate."""
+    nbytes = 12 * n1 + 4
+    int_ops = n1 * (3 + max(1, (n1 - 1).bit_length()))
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * int_ops / INT32_OPS_PER_S
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms, int_ops=int_ops,
+                bytes=nbytes)
+
+
+def k16_rounds(codes, device, check_plain: bool):
+    """Run the doubling loop on the card through K16 -> (SA, the ranks and
+    step of the first and of the last round, BIG, rounds); with
+    check_plain, every round's nr, order and maxg must equal the plain
+    round's on the same inputs."""
+    n = len(codes)
+    r0, big = bsa.initial_ranks(codes)
+    r = torch.from_numpy(r0).to(device)
+    first = (r, 1)
+    k, rounds = 1, 0
+    while True:
+        kk = min(k, n + 1)
+        nr, order, maxg = bsa.sa_round(r, kk, big)
+        if check_plain:
+            pnr, porder, pmaxg = bsa.sa_round_plain(r, kk, big)
+            err = max_abs_err([(nr, pnr), (order, porder), (maxg, pmaxg)])
+            require(err == 0, f"K16 round {rounds} (k={kk}) disagrees "
+                    f"with its plain version by {err}")
+        rounds += 1
+        if int(maxg) == n:
+            return order, first, (r, kk), big, rounds
+        r, k = nr, 2 * k
+
+
+def phase_build(rng, work, device, genome, base, gpu):
+    """bowtie-build --jax-sa and bowtie-inspect through the port's CLIs on
+    phase index's genome, K16 against its plain version on every round of
+    its forward text, and K16 timed at 100 Mbp."""
+    name = "synthetic_4.6M seeded"
+    fasta = os.path.join(work, "genome.fa")
+    chars = CHARS[genome].tobytes()
+    with open(fasta, "wb") as f:
+        f.write(b">" + name.encode() + b"\n")
+        for i in range(0, len(chars), 60):
+            f.write(chars[i:i + 60] + b"\n")
+    base_dev = os.path.join(work, "genome_dev")
+
+    def build():
+        t = time.time()
+        rc = build_cli.main(["--jax-sa", "-q", fasta, base_dev],
+                            device=device)
+        sync(device)
+        return rc, time.time() - t
+
+    (rc, build_s), launches = counted(build, device)
+    require(rc == 0, f"cli build --jax-sa exited {rc}")
+    require(launches["sa_round"] > 0, f"cli build launched {launches}")
+    exts = (".1.ebwt", ".2.ebwt", ".3.ebwt", ".4.ebwt", ".rev.1.ebwt",
+            ".rev.2.ebwt")
+    for ext in exts:
+        with open(base + ext, "rb") as a, open(base_dev + ext, "rb") as b:
+            require(a.read() == b.read(), f"--jax-sa {ext} differs from "
+                    "the host SA-IS build's")
+
+    def inspect(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            require(inspect_cli.main(args + [base_dev]) == 0,
+                    f"cli inspect {args} failed")
+        return out.getvalue()
+
+    t = time.time()
+    lines = inspect([]).split("\n")
+    inspect_s = time.time() - t
+    require(lines[0] == ">" + name, f"inspect names {lines[0]!r}")
+    require("".join(lines[1:]).encode() == chars,
+            "inspect does not decode to the genome")
+    summary = inspect(["-s"]).splitlines()
+    require(summary[-1] == f"Sequence-1\t{name}\t{len(genome)}",
+            f"inspect -s ends {summary[-1]!r}")
+
+    # K16 against its plain version on every round of the forward text
+    _, _, _, _, fw_rounds = k16_rounds(genome, device, check_plain=True)
+
+    # K16 timed at 100 Mbp, first and last round
+    text = rng.integers(0, 4, SA_BIG_BP, dtype=np.uint8)
+    t = time.time()
+    sa_host = bsa.suffix_array(text)
+    sais_s = time.time() - t
+    t = time.time()
+    sa_dev = bsa.suffix_array_doubling(text, device)
+    dev_s = time.time() - t
+    require(np.array_equal(sa_dev, sa_host),
+            "the 100 Mbp device SA differs from SA-IS")
+    del sa_dev, sa_host
+    order, first, last, big, big_rounds = k16_rounds(text, device,
+                                                     check_plain=False)
+    del order
+    n1 = SA_BIG_BP + 1
+    timed = {}
+    for tag, (r, k) in (("first", first), ("last", last)):
+        got = bsa.sa_round(r, k, big)
+        want = bsa.sa_round_plain(r, k, big)
+        err = max_abs_err(list(zip(got, want)))
+        require(err == 0, f"K16 {tag} round at 100 Mbp disagrees by {err}")
+        del got, want
+        r2 = torch.full_like(r, big)
+        r2[:n1 - k] = r[k:]
+        keys = r.long() * (big + 1) + r2.long()
+        del r2
+        timed[tag] = dict(
+            k=k, max_abs_err=err,
+            ms=time_ms(lambda: bsa.sa_round(r, k, big), device, 20),
+            plain_ms=time_ms(lambda: bsa.sa_round_plain(r, k, big),
+                             device, 5),
+            library_ms=time_ms(lambda: torch.sort(keys, stable=True),
+                               device, 20))
+        del keys
+    del first, last
+    torch.cuda.empty_cache()
+
+    fl = timed["first"]
+    entry = dict(
+        name="K16 sa_round", route="cuda", source=SA_SOURCE,
+        replaces="bowtie_tpu/build/sa.py:137",
+        ms=fl["ms"], plain_ms=fl["plain_ms"], **k16_bounds(n1),
+        library_ms=fl["library_ms"],
+        library="torch.sort(packed keys, stable=True)",
+        max_abs_err=0, match=True, suffixes=n1,
+        last_round=timed["last"], rounds_100m=big_rounds,
+        rounds_fw_4_6m=fw_rounds)
+    emit({"phase": "build", "gpu": gpu, "genome_bp": len(genome),
+          "cli_build_s": build_s, "launches": launches,
+          "files_equal_host_sais": True, "inspect_s": inspect_s,
+          "inspect_decodes": True, "k16_rounds_checked": fw_rounds,
+          "sa_100m": {"bp": SA_BIG_BP, "rounds": big_rounds,
+                      "device_s": dev_s, "sais_s": sais_s, "equal": True},
+          "k16_ms": {t: v["ms"] for t, v in timed.items()},
+          "plain_ms": {t: v["plain_ms"] for t, v in timed.items()},
+          "library_ms": {t: v["library_ms"] for t, v in timed.items()}})
+    return {"K16": entry}, {"cli build --jax-sa": launches}
 
 
 def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
@@ -1837,14 +2014,16 @@ def main() -> int:
     seg_len = 2000
     genome, rep_starts, base, idx, fm, fm_sa = phase_index(
         rng, work, device, 4_600_000, 64, seg_len)
-    stats = phase_kernels(rng, device, genome, rep_starts, seg_len, fm,
-                          fm_sa, 1 << 20)
+    stats, runs = phase_build(np.random.default_rng(args.seed + 1), work,
+                              device, genome, base, gpu)
+    stats.update(phase_kernels(rng, device, genome, rep_starts, seg_len, fm,
+                               fm_sa, 1 << 20))
     idx_bw = read_ebwt(base + ".rev")
     golden = (GoldenFM(idx), GoldenFM(idx_bw))      # the host oracle's
     stats.update(phase_dfs(rng, work, device, genome, rep_starts, seg_len,
                            idx, idx_bw, golden))
-    runs = phase_cli(rng, work, device, genome, rep_starts, seg_len,
-                     base, idx, fm_sa, CLI_READS, gpu)
+    runs.update(phase_cli(rng, work, device, genome, rep_starts, seg_len,
+                          base, idx, fm_sa, CLI_READS, gpu))
     runs.update(phase_cli_v(rng, work, device, genome, rep_starts, seg_len,
                             base, idx, idx_bw, golden, CLI_READS, gpu))
     stats.update(phase_n(rng, work, device, genome, rep_starts, seg_len,
@@ -1864,7 +2043,8 @@ def main() -> int:
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
                "K9": "derive_b_jobs", "K10": "best_machine",
-               "K10r": "best_record", "K11": "best_pack"}
+               "K10r": "best_record", "K11": "best_pack",
+               "K16": "sa_round"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
     for key, entry in stats.items():

@@ -6,9 +6,11 @@ K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
 walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
 derives; K10 and K11 (the best-first machine) under -v and seeded
 policies, dense and walk-left; K10r (its record mode, the paired
-recorder's fused fw-DAG + rc-DAG run) capped and uncapped; and the CLI on
-the card (-v 0/1/2/3, -n, --best, -M, --sanity, --stats, and paired input
-with -p) must write what it writes on the CPU.
+recorder's fused fw-DAG + rc-DAG run) capped and uncapped; K16 (the
+prefix-doubling round of csrc/sa.cu) round for round, and the SA it builds
+against SA-IS; and the CLI on the card (-v 0/1/2/3, -n, --best, -M,
+--sanity, --stats, paired input with -p, and bowtie-build --jax-sa) must
+write what it writes on the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one; on the
 card (where JAX, which tests/conftest.py imports, may be absent) run
 
@@ -401,3 +403,63 @@ def test_pe_cli_on_card_matches_cpu(card, tmp_path, args):
                      re.sub(r"wall time: .*", "", err.getvalue())))
     assert outs[0] == outs[1]
     assert outs[0][0]
+
+
+def _sa_text(kind):
+    rng = np.random.default_rng(16)
+    if kind == "n1":
+        return np.array([2], np.uint8)
+    if kind == "empty":
+        return np.zeros(0, np.uint8)
+    if kind == "all_a":
+        return np.zeros(70000, np.uint8)
+    if kind == "planted":
+        t = rng.integers(0, 4, 300000).astype(np.uint8)
+        seg = rng.integers(0, 4, 2000).astype(np.uint8)
+        for s in range(0, 298000, 4700):
+            t[s:s + 2000] = seg
+        return t
+    return rng.integers(0, 4, 5000).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["n1", "empty", "small", "all_a",
+                                  "planted"])
+def test_sa_round_matches_plain(card, kind):
+    """K16 against its plain version on the card, round for round (nr,
+    order, maxg), and the whole doubling SA against SA-IS."""
+    from bowtie_tpu_torch.build import sa as tsa
+    codes = _sa_text(kind)
+    n = len(codes)
+    r0, big = tsa.initial_ranks(codes)
+    r = torch.from_numpy(r0).cuda()
+    kernels.reset_launches()
+    k, rounds = 1, 0
+    while True:
+        nr, order, maxg = tsa.sa_round(r, min(k, n + 1), big)
+        pnr, porder, pmaxg = tsa.sa_round_plain(r, min(k, n + 1), big)
+        assert torch.equal(nr, pnr) and torch.equal(order, porder)
+        assert int(maxg) == int(pmaxg)
+        rounds += 1
+        if int(maxg) == n:
+            break
+        r, k = nr, 2 * k
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sa_round"] == rounds
+    sa = order.cpu().numpy().astype(np.int64)
+    np.testing.assert_array_equal(sa, tsa.suffix_array(codes))
+    np.testing.assert_array_equal(
+        tsa.suffix_array_doubling(codes), tsa.suffix_array(codes))
+
+
+def test_cli_build_jax_sa_on_card(card, tmp_path):
+    """bowtie-build --jax-sa on the card writes the committed index."""
+    from bowtie_tpu_torch.cli import build as tbuild
+    fasta = os.path.join(HERE, "golden", "small_genome.fa")
+    kernels.reset_launches()
+    assert tbuild.main(["--jax-sa", "-q", "-o", "5", "-t", "7", fasta,
+                        str(tmp_path / "j")]) == 0
+    assert kernels.LAUNCHES["sa_round"] > 0
+    for ext in (".1.ebwt", ".2.ebwt", ".3.ebwt", ".4.ebwt", ".rev.1.ebwt",
+                ".rev.2.ebwt"):
+        assert ((tmp_path / ("j" + ext)).read_bytes()
+                == open(BASE + ext, "rb").read()), ext

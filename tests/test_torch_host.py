@@ -114,13 +114,6 @@ def test_builder_byte_identical(built, ext):
         assert f.read() == g.read()
 
 
-def test_blockwise_build_refused(tmp_path):
-    from bowtie_tpu_torch.build.builder import build_index
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        build_index([np.zeros(100, np.uint8)], ["x"], str(tmp_path / "b"),
-                    blockwise=True)
-
-
 def _port_files():
     pkg = os.path.join(REPO, "bowtie_tpu_torch")
     for root, _dirs, files in os.walk(pkg):
@@ -128,7 +121,8 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "bin", "bowtie-tpu-torch")
+    for tool in ("", "-build", "-inspect"):
+        yield os.path.join(REPO, "bin", "bowtie-tpu-torch" + tool)
 
 
 def _imported_roots(path):
@@ -151,7 +145,14 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"bowtie_tpu_torch/align/pe_device.py",
-            "bowtie_tpu_torch/align/best_paired.py"} <= names
+            "bowtie_tpu_torch/align/best_paired.py",
+            "bowtie_tpu_torch/build/sa.py",
+            "bowtie_tpu_torch/build/blockwise.py",
+            "bowtie_tpu_torch/build/inspect.py",
+            "bowtie_tpu_torch/cli/build.py",
+            "bowtie_tpu_torch/cli/inspect.py",
+            "bin/bowtie-tpu-torch-build",
+            "bin/bowtie-tpu-torch-inspect"} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "bowtie_tpu"}, path
