@@ -8,15 +8,22 @@ interact (the interleave only decides which ranges get chased and rescued,
 and when to stop), so the costly part, the branch-and-bound search,
 batches:
 
-1. RECORD (card): every (pair, mate, orientation) is one lane of the
-   best-first machine in record mode, K10r (align/best_device.py
-   run_machine with record=True): the lane appends its driver's ranges to
-   its hit pool in emission order, with the driver's done-at-emission
-   flag, until the driver is exhausted or rec_cap ranges are recorded.
-   The fw-DAG and the rc-DAG lanes run in ONE launch: the config tables
-   are the two DAGs' tables one after another, and each lane reads its own
-   through its cfg0f/cfg0o bases.  K11 (best_pack) packs the recorded rows
-   for one download.
+0. EXACT (card, rec_cap 1 only): one launch of K12 (exact_ranges_cat)
+   finds the whole-read exact range of every (pair, mate, orientation)
+   lane, each on the index its first driver searches.  A lane of 4-255
+   bases with a non-empty range records that range alone, as a one-row
+   stream marked capped: the exact-reporting driver starts at cost 0 and
+   every other driver at 1 << 14 or more, so the best-first search would
+   report that range first.  Only the other lanes reach the machine.
+1. RECORD (card): every (pair, mate, orientation) lane phase 0 leaves is
+   one lane of the best-first machine in record mode, K10r
+   (align/best_device.py run_machine with record=True): the lane appends
+   its driver's ranges to its hit pool in emission order, with the
+   driver's done-at-emission flag, until the driver is exhausted or
+   rec_cap ranges are recorded.  The fw-DAG and the rc-DAG lanes run in
+   ONE launch: the config tables are the two DAGs' tables one after
+   another, and each lane reads its own through its cfg0f/cfg0o bases.
+   K11 (best_pack) packs the recorded rows for one download.
 2. REPLAY (host): PairedBestAligner (align/best_paired.py) runs unchanged
    over ReplayDrivers that pop the recorded streams.  The interleave, the
    chase's RNG draws, the rescue scans and the sink calls happen as on the
@@ -24,20 +31,22 @@ batches:
    live pairs are scored together, one wave at a time (_score_batch).
 
 A pair whose interleave outruns a capped stream re-records its four
-streams uncapped and replays again (round 2; `escalations` counts them).
-A pair with an overflowing lane (the hit pool, the mismatch slots, the
-step budget) or a mate the machine does not take (under 4 or over 255
-bases) re-runs on the live host drivers (`fallbacks` counts them), as the
-reference does.
+streams uncapped and replays again (round 2, with no phase 0;
+`escalations` counts them).  A pair with an overflowing lane (the hit
+pool, the mismatch slots, the step budget) or a mate the machine does not
+take (under 4 or over 255 bases) re-runs on the live host drivers
+(`fallbacks` counts them), as the reference does; `synthesized` counts the
+lanes phase 0 settled.
 
-rec_cap is 12, or None (uncapped) when the policy needs every row
-(-k > 1, -a, -m, -M), as in the reference with its interleave switched
-off.  Left out, with the device interleave (K12, K13; ROADMAP queue 1
-item 3): the rec_cap = 1 policy, the phase-0 exact synthesis on K12
-(SynthStream, _synth_streams, _exact_fm), the _ilv_* members, REC_W and
-dryrun_pe.  UnrecordedDriver is left out too: it stands for a stream
-slot a recording skipped, and every recording here (and the reference's
-after its phased design went) records all four.
+rec_cap is 1 with phase 0 for bowtie's default -k 1 without -m, the one
+policy that stops at the first pair (the reference's policy with its
+interleave on, pe_device.py:487-495), and None (uncapped) when the policy
+needs every row (-k > 1, -a, -m, -M).  Left out: the device interleave (K13, ROADMAP queue 1 item 3b: the _ilv_*
+members, REC_W), SynthStream, _synth_streams and _exact_fm (no caller in
+the reference's recorder), the shape buckets of phase 0's matrix, and
+dryrun_pe.  UnrecordedDriver is left out too: it stands for a stream slot
+a recording skipped, and every recording here (and the reference's after
+its phased design went) records or synthesizes all four.
 """
 from __future__ import annotations
 
@@ -54,10 +63,65 @@ from .best_device import (CFG_F, CFG_O, H_MAX, HIT_W, INF32, MM_SLOTS,
                           seeded_mode_configs, unpack_harvest,
                           v_mode_configs)
 from .best_factories import make_paired_best_aligner
-from .dfs_device import _len_bucket, build_fmpair
+from .dfs_device import FMPair, _len_bucket, build_fmpair
+from .exact import exact_ranges_plain, right_align
 from .golden import GoldenFM
 from .policy import KPolicy
+from .. import kernels
 from ..utils.rng import fill_seed_caches
+
+
+def exact_ranges_cat_plain(pair: FMPair, reads: torch.Tensor,
+                           lens: torch.Tensor, efw: torch.Tensor,
+                           work: torch.Tensor | None = None):
+    """[N, L] right-aligned codes, [N] lens and [N] efw -> (top[N],
+    bot[N]) int64, (0, 0) where the range is empty: lane j searched on
+    pair.fw where efw[j] is non-zero, else on pair.bw
+    (bowtie_tpu/align/pe_device.py:37 exact_ranges_cat).  Each index's
+    lanes run K2's lockstep scan (align/exact.py exact_ranges_plain);
+    lanes are independent, so the split changes no result.  If `work` is
+    given ([2, N] int64), each lane's LF steps and popcounted words are
+    added to it as exact_ranges_plain counts them."""
+    n = reads.shape[0]
+    top = torch.zeros(n, dtype=torch.int64, device=reads.device)
+    bot = torch.zeros(n, dtype=torch.int64, device=reads.device)
+    for fm, sel in ((pair.fw, efw != 0), (pair.bw, efw == 0)):
+        j = torch.nonzero(sel).squeeze(1)
+        if not j.numel():
+            continue
+        w = None if work is None else torch.zeros_like(work[:, j])
+        top[j], bot[j] = exact_ranges_plain(fm, reads[j], lens[j], w)
+        if work is not None:
+            work[:, j] += w
+    return top, bot
+
+
+def exact_ranges_cat(pair: FMPair, reads: torch.Tensor, lens: torch.Tensor,
+                     efw: torch.Tensor):
+    """K12: (top[N], bot[N]) int64 whole-read exact ranges of the
+    right-aligned uint8 reads [N, L] with int32 lengths [N], lane j on the
+    forward index where the uint8 efw[j] is non-zero, else on the mirror;
+    (0, 0) where a range is empty.  Launches csrc/exact.cu's
+    exact_ranges_cat_kernel on CUDA tensors."""
+    if kernels.on_cpu(pair.fw, reads, lens, efw):
+        return exact_ranges_cat_plain(pair, reads, lens, efw)
+    dev = pair.device
+    kernels.check(reads, "reads", torch.uint8, 2, dev)
+    kernels.check(lens, "lens", torch.int32, 1, dev)
+    kernels.check(efw, "efw", torch.uint8, 1, dev)
+    n, L = reads.shape
+    if lens.shape[0] != n or efw.shape[0] != n:
+        raise ValueError(f"lens/efw have {lens.shape[0]}/{efw.shape[0]} "
+                         f"entries for {n} reads")
+    top = torch.empty(n, dtype=torch.int64, device=dev)
+    bot = torch.empty(n, dtype=torch.int64, device=dev)
+    if n:
+        kernels.launch("exact_ranges_cat", "bt_exact_ranges_cat",
+                       kernels.fm_view(pair.fw), kernels.fm_view(pair.bw),
+                       reads.data_ptr(), lens.data_ptr(), efw.data_ptr(),
+                       n, L, top.data_ptr(), bot.data_ptr())
+    return top, bot
+
 
 class ReplayTruncated(Exception):
     """The interleave asked for a range past the recorded end of a
@@ -400,13 +464,12 @@ class DevicePairedBestAligner:
         self.fw1, self.fw2 = fw1, fw2
         self.fallbacks = 0
         self.escalations = 0
-        # stop each lane after this many recorded ranges instead of
-        # running its driver to exhaustion; a pair whose interleave
-        # outruns a capped stream re-records uncapped (a pair with no
-        # alignment must drain every driver, so the cap sits near the
-        # hit pool's bound to keep those rare).  -k > 1, -a, -m and -M
-        # chase every range: uncapped there.
-        self.rec_cap = 12 if not policy.want_all_rows() else None
+        self.synthesized = 0
+        # -k 1 without -m: phase 0, then each lane stops after its first
+        # recorded range; a pair whose interleave outruns a capped stream
+        # re-records uncapped (pe_device.py:487-495).  -k > 1, -a, -m
+        # and -M chase every range: uncapped there.
+        self.rec_cap = None if policy.want_all_rows() else 1
         self._replay_state = _ReplayState(make_paired_best_aligner(
             GoldenFM(idx_fw), GoldenFM(idx_bw), refs, policy,
             mode=mode, v=v, seed_mms=seed_mms, seed_len=seed_len,
@@ -462,15 +525,20 @@ class DevicePairedBestAligner:
 
     def _record_all(self, plan, idxs, seeds, cap):
         """Record all four anchor streams of the pairs idxs (seeds: mate
-        1's seed of each) in ONE machine run over every (pair, mate,
-        orientation) lane; each lane's cfg0f/cfg0o bases select the fw- or
-        rc-DAG tables.  K10r, then K11 and one download.  Lanes the
+        1's seed of each).  At cap 1, phase 0 first settles every lane
+        with a whole-read exact range (_synthesize); the lanes left run
+        in ONE machine run, each lane's cfg0f/cfg0o bases selecting the
+        fw- or rc-DAG tables: K10r, then K11 and one download.  Lanes the
         machine does not take (under 4 or over 255 bases) overflow: their
         pairs re-run on the host drivers.  -> (streams {i: [4 streams]},
         overflowed {i: bool})."""
-        lanes = self._lanes(plan, idxs, seeds)
         sts = {i: [None] * 4 for i in idxs}
         ovd = {i: False for i in idxs}
+        keep = None
+        if cap == 1:
+            keep = self._synthesize(plan, idxs, sts)
+            self.synthesized += int((~keep).sum())
+        lanes = self._lanes(plan, idxs, seeds, keep)
         n = len(lanes["need"])
         overflow = np.ones(n, bool)
         hits = np.zeros((n, H_MAX, HIT_W), np.int32)
@@ -493,22 +561,69 @@ class DevicePairedBestAligner:
                 mach.hostinit.cfg["o_fw"], mach.hostinit.cfg["o_chase_efw"])
         return sts, ovd
 
-    def _lanes(self, plan, idxs, seeds):
-        """The lanes of one recording: need[j] = (machine, read, stream
-        slot, index into idxs), the fw-DAG's lanes first so that each
-        lane's config base is monotone; take: the lanes the machine runs
-        (4-255 bases).  Two seeds per lane: mate 1's (seeds) for the outer
-        CostAware (its sort draws, the strandFix swap) and the lane's own
-        read's for the range sources and the seeded drivers' inner
-        CostAware, as the host drivers seed them
+    def exact_inputs(self, plan, idxs):
+        """Phase 0's K12 inputs on the pair's device: lane s*len(idxs) + k
+        is plan section s's mate of pair idxs[k], oriented as the
+        section's first driver reads it (fw or rc) and reversed when that
+        driver searches the mirror index, which consumes the read
+        forward; efw 1 for the forward index.  -> (reads [4n, L] uint8
+        right-aligned, lens [4n] int32, efw [4n] uint8)."""
+        codes, efw = [], []
+        for mach, mates, _slot in plan:
+            cfg = mach.outers[0].cfg
+            assert cfg.report_exacts
+            for i in idxs:
+                b = mates[i].codes_fw if cfg.fw else mates[i].codes_rc
+                codes.append(b if cfg.ebwt_fw else b[::-1])
+                efw.append(int(cfg.ebwt_fw))
+        mat, lens = right_align(codes)
+        dev = self.pair.device
+        return (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+                torch.tensor(efw, dtype=torch.uint8).to(dev))
+
+    def _synthesize(self, plan, idxs, sts):
+        """Phase 0 (pe_device.py:652-691): one K12 launch and one download
+        for every lane of the recording; a lane of 4-255 bases with a
+        non-empty range gets a one-row stream in sts: driver 0, that
+        range, cost 0, stratum 0, no mismatches, done column 2 (capped),
+        qlen.  -> keep [4, len(idxs)] bool, the lanes left to record."""
+        top, bot = exact_ranges_cat(self.pair, *self.exact_inputs(plan,
+                                                                  idxs))
+        tb = torch.stack([top, bot]).cpu().numpy().reshape(2, 4, len(idxs))
+        keep = np.ones((4, len(idxs)), bool)
+        for s, (mach, mates, slot) in enumerate(plan):
+            o_fw = mach.hostinit.cfg["o_fw"]
+            o_efw = mach.hostinit.cfg["o_chase_efw"]
+            for k, i in enumerate(idxs):
+                t, b = tb[:, s, k]
+                qlen = len(mates[i].seq)
+                if b > t and 4 <= qlen <= 255:
+                    row = np.zeros((1, HIT_W), np.int64)
+                    row[0, 1], row[0, 2] = t, b
+                    row[0, 6] = 2           # capped
+                    row[0, 7] = qlen
+                    sts[i][slot] = RecordedStream(row, qlen, o_fw, o_efw)
+                    keep[s, k] = False
+        return keep
+
+    def _lanes(self, plan, idxs, seeds, keep=None):
+        """The lanes of one recording (keep[s, k]: record plan section s's
+        mate of pair idxs[k]; default all): need[j] = (machine, read,
+        stream slot, index into idxs), the fw-DAG's lanes first so that
+        each lane's config base is monotone; take: the lanes the machine
+        runs (4-255 bases).  Two seeds per lane: mate 1's (seeds) for the
+        outer CostAware (its sort draws, the strandFix swap) and the
+        lane's own read's for the range sources and the seeded drivers'
+        inner CostAware, as the host drivers seed them
         (best_driver.CostAwareDriver.seed_read, best.BestRangeSource.
         set_query).  The reference's recorder seeds the latter with mate
         1's too (ROADMAP queue 3)."""
         need = []
-        for mach, mates, slot in plan:
+        for s, (mach, mates, slot) in enumerate(plan):
             grp = 0 if mach is self.m_fw else 1
             need += [(grp, slot, k, mach, mates[i])
-                     for k, i in enumerate(idxs)]
+                     for k, i in enumerate(idxs)
+                     if keep is None or keep[s, k]]
         need.sort(key=lambda t: t[:3])
         reads = [t[4] for t in need]
         return dict(
@@ -536,14 +651,19 @@ class DevicePairedBestAligner:
                     bt_on=m.bt_on, has_seeded=m.has_seeded,
                     max_steps=m.max_steps, record=True))
 
-    def record_inputs(self, pairs):
-        """run_machine's arguments (but rec_cap) for recording all four
-        streams of `pairs`, as align_batch's first round records them: for
-        holding K10r to its plain version.  -> dict(args=, kw=)."""
+    def record_inputs(self, pairs, cap):
+        """run_machine's arguments (but rec_cap) for the machine's lanes
+        of `pairs` as _record_all records them at `cap` (at cap 1, the
+        lanes phase 0 leaves; else every lane): for holding K10r to its
+        plain version.  -> dict(args=, kw=)."""
         idxs = list(range(len(pairs)))
         seeds = fill_seed_caches([p[0] for p in pairs], self.global_seed)
-        return self._machine_args(self._lanes(self.plan(pairs), idxs,
-                                              seeds))
+        plan = self.plan(pairs)
+        keep = None
+        if cap == 1:
+            keep = self._synthesize(plan, idxs, {i: [None] * 4
+                                                 for i in idxs})
+        return self._machine_args(self._lanes(plan, idxs, seeds, keep))
 
     def plan(self, pairs):
         """The four (machine, mates, stream slot) sections of the

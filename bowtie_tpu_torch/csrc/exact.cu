@@ -8,8 +8,11 @@
 //   K3 bt_resolve_walk  <- bowtie_tpu/align/exact.py:99  resolve_rows (walk)
 //      bt_resolve_sa    <- bowtie_tpu/align/exact.py:99  resolve_rows (dense SA)
 //   K4 bt_one_row       <- bowtie_tpu/align/pipeline.py:53 _one_row_kernel
+//   K12 bt_exact_ranges_cat <- bowtie_tpu/align/pe_device.py:37
+//                              exact_ranges_cat
 // Plain PyTorch versions: exact_ranges_plain / resolve_rows_plain in
-// align/exact.py, one_row_plain in align/pipeline.py.
+// align/exact.py, one_row_plain in align/pipeline.py,
+// exact_ranges_cat_plain in align/pe_device.py.
 //
 // What bounds them: every LF step of a range end reads one 32-byte
 // sector of occ and one of BWT words (fm.cuh), and the steps of one lane
@@ -109,6 +112,53 @@ exact_ranges_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
     bot[b] = u;
 }
 
+// One of two index views, chosen field by field: each field is then a
+// register select between two kernel-parameter loads.  Selecting the
+// whole struct (`first ? a : b`) needs the address of a kernel parameter,
+// which copies both views to local memory and puts a local load in every
+// LF step of the lane's dependent chain.
+__device__ __forceinline__ BtFM pick_fm(bool first, const BtFM& a,
+                                        const BtFM& b) {
+    BtFM f;
+    f.bwt = first ? a.bwt : b.bwt;
+    f.occ = first ? a.occ : b.occ;
+    f.ftab_hi = first ? a.ftab_hi : b.ftab_hi;
+    f.ftab_lo = first ? a.ftab_lo : b.ftab_lo;
+    f.offs = first ? a.offs : b.offs;
+    f.sa = first ? a.sa : b.sa;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) f.fchr[c] = first ? a.fchr[c] : b.fchr[c];
+    f.zoff = first ? a.zoff : b.zoff;
+    f.bwt_len = first ? a.bwt_len : b.bwt_len;
+    f.ftab_chars = first ? a.ftab_chars : b.ftab_chars;
+    f.off_rate = first ? a.off_rate : b.off_rate;
+    return f;
+}
+
+// K12: K2 with a per-strand choice of index, for the paired recorder's
+// phase 0 (the whole-read exact range of every anchor lane, each mate in
+// each orientation on the forward or the mirror index, in one launch).
+// efw[b] != 0 searches the forward index, else the mirror; each index
+// brings its own ftab, occ, BWT words and zoff (fchr and bwt_len are
+// shared, but each view carries its own copy).  Bound and design are
+// K2's; a lane's chain touches one index only, and the two indexes of a
+// bacterial genome still fit in L2 together.
+__global__ void __launch_bounds__(kThreads)
+exact_ranges_cat_kernel(const BtFM fw, const BtFM bw,
+                        const uint8_t* __restrict__ reads,
+                        const int32_t* __restrict__ lens,
+                        const uint8_t* __restrict__ efw, int n, int L,
+                        int64_t* __restrict__ top,
+                        int64_t* __restrict__ bot) {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= n) return;
+    uint32_t t, u;
+    const BtFM fm = pick_fm(efw[b] != 0, fw, bw);
+    exact_one(fm, reads + (size_t)b * L, L, lens[b], t, u);
+    top[b] = t;
+    bot[b] = u;
+}
+
 template <bool DENSE>
 __global__ void __launch_bounds__(kThreads)
 resolve_kernel(const BtFM fm, const int64_t* __restrict__ rows, int n,
@@ -158,6 +208,16 @@ int bt_exact_ranges(const BtFM* fm, const void* reads, const void* lens,
     exact_ranges_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
         *fm, (const uint8_t*)reads, (const int32_t*)lens, n, L,
         (int64_t*)top, (int64_t*)bot);
+    return (int)cudaGetLastError();
+}
+
+int bt_exact_ranges_cat(const BtFM* fw, const BtFM* bw, const void* reads,
+                        const void* lens, const void* efw, int n, int L,
+                        void* top, void* bot, void* stream) {
+    exact_ranges_cat_kernel<<<grid_for(n), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        *fw, *bw, (const uint8_t*)reads, (const int32_t*)lens,
+        (const uint8_t*)efw, n, L, (int64_t*)top, (int64_t*)bot);
     return (int)cudaGetLastError();
 }
 

@@ -27,8 +27,9 @@ SOURCES = ("exact.cu", "dfs.cu", "best.cu", "sa.cu")
 HEADERS = ("fm.cuh",)
 
 # kernel launches since the last reset_launches(), by wrapper
-LAUNCHES = {"exact_ranges": 0, "resolve_rows_walk": 0,
-            "resolve_rows_sa": 0, "one_row": 0, "derive_rows": 0,
+LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
+            "resolve_rows_walk": 0, "resolve_rows_sa": 0, "one_row": 0,
+            "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
             "best_machine": 0, "best_record": 0, "best_pack": 0,
             "sa_round": 0}
@@ -127,6 +128,9 @@ _FM = ctypes.POINTER(FMView)
 _SIGNATURES = {
     # (fm, reads, lens, n, L, top, bot, stream)
     "bt_exact_ranges": [_FM, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    # (fw, bw, reads, lens, efw, n, L, top, bot, stream)
+    "bt_exact_ranges_cat": [_FM, _FM, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                            _P, _P, _P],
     # (fm, rows, n, off, ok, stream)
     "bt_resolve_walk": [_FM, _P, ctypes.c_int, _P, _P, _P],
     "bt_resolve_sa": [_FM, _P, ctypes.c_int, _P, _P, _P],

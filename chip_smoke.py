@@ -111,21 +111,31 @@ Phases, each printing one JSON line:
 12. pe     - the paired recorder: 512 pairs of 50 bp mates (pe_pairs: the
              n phase's error and quality mix, fragments of 100-250 bases,
              10 % with a random mate, 5 % 400-600 apart), all four anchor
-             streams of each in one fused launch (2,048 lanes).  K10r
-             (best_machine in record mode) held exactly to its plain
+             streams of each in one fused launch (2,048 lanes).  K12
+             (exact_ranges_cat) held exactly to its plain version on the
+             card on the 2,048 lanes of phase 0's matrix (each mate in each
+             orientation, on the forward or the mirror index) and timed
+             there (median of 20; plain median of 5), and again at 2^21
+             strands of the kernels phase's read mix (their own generator,
+             seed + 2), forward and mirror lanes alternating, beside K2.
+             K10r (best_machine in record mode) held exactly to its plain
              version on the card (hits, nhits, overflow, mode) on every
              lane the plain version finished within its budget, under -n 2
-             -k 1 (rec_cap 12) and -v 2 -a -m 3 (uncapped) on the dense
-             pair, and -n 2 -k 1 on 128 pairs with the pair thinned to
-             offRate 13 (walk-left).  The first policy is timed; K10r's
-             bytes are those the run reads and writes (k10_bytes).
+             -k 1 at rec_cap 1 (the lanes phase 0 leaves) and -v 2 -a -m 3
+             (uncapped, every lane) on the dense pair, and -n 2 -k 1 at
+             rec_cap 1 on 128 pairs with the pair thinned to offRate 13
+             (walk-left).  The first policy is timed; K10r's bytes are
+             those the run reads and writes (k10_bytes).
 13. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
              default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
-             --fr -X 250) and -v 2 -a -m 1 -S, each run twice and the
-             second counted from zero and traced, with the pairs re-run on
+             --fr -X 250; phase 0 on K12, then K10r at rec_cap 1) and -v 2
+             -a -m 1 -S, each run twice and the second counted from zero
+             and traced, with the lanes phase 0 settled (synthesized), the
+             lanes K10r ran and those that overflowed, by mate length, per
+             round (rec_cap 1, then None for round 2), the pairs re-run on
              the host drivers (fallbacks) and re-recorded uncapped
              (escalations) counted; every reported mate must equal its
-             reference substring except at its reported mismatches; the
+             reference substring except at its reported mismatches.  The
              default command on the first 1,000 pairs must write what the
              port's V1 host engine writes (build_aligner(host_engine=
              True)), and with -p 4 on the first 2,000 what it writes with
@@ -169,8 +179,9 @@ from bowtie_tpu_torch.align.dfs_jobs import (  # noqa: E402
     build_n_jobs_a_vec, build_v_jobs_vec)
 from bowtie_tpu_torch.align.drivers import OracleAligner  # noqa: E402
 from bowtie_tpu_torch.align.golden import GoldenFM  # noqa: E402
+from bowtie_tpu_torch.align import pe_device as pe  # noqa: E402
 from bowtie_tpu_torch.align.pe_device import (  # noqa: E402
-    DevicePairedBestAligner)
+    DevicePairedBestAligner, exact_ranges_cat, exact_ranges_cat_plain)
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
     exact_ranges, exact_ranges_plain, resolve_rows, resolve_rows_plain)
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
@@ -1722,11 +1733,12 @@ PE_STEPS = 2000                # the plain version's step budget, dense pair
 THIN_PE_STEPS = 2500           # and on the offRate-13 pair
 # (name, aligner kwargs, policy (khits, mhits), rec_cap, thinned pair)
 PE_POLICIES = (
-    ("-n 2 -k 1 (rec_cap 12)", dict(mode="n", seed_mms=2), (1, INF), 12,
-     False),
+    ("-n 2 -k 1 (rec_cap 1, after phase 0)", dict(mode="n", seed_mms=2),
+     (1, INF), 1, False),
     ("-v 2 -a -m 3 (uncapped)", dict(mode="v", v=2), (INF, 3), None, False),
-    ("-n 2 -k 1 (rec_cap 12), offRate 13", dict(mode="n", seed_mms=2),
-     (1, INF), 12, True))
+    ("-n 2 -k 1 (rec_cap 1, after phase 0), offRate 13",
+     dict(mode="n", seed_mms=2), (1, INF), 1, True))
+K12_STRANDS = 1 << 21          # K12 timed beside K2, on as many strands
 CLI_PE_PAIRS = 20_000
 PE_HOST_SLICE = 1000           # pairs held to the V1 host engine
 PE_P_SLICE = 2000              # pairs run with -p 4 and -p 1
@@ -1807,7 +1819,7 @@ def pe_case(name, al, pairs, cap, max_steps, device):
     """K10r on the recorder's fused lanes of `pairs`, held to its plain
     version on the card on every lane the plain version finished within
     max_steps.  -> (row, the run's inputs and outputs)."""
-    a = al.record_inputs(pairs)
+    a = al.record_inputs(pairs, cap)
     pair, cfg, host, seeds = a["args"]
     kw = dict(a["kw"], max_steps=max_steps, rec_cap=cap)
     out, transitions = bd.run_machine(pair, cfg, host, seeds, **kw)
@@ -1849,16 +1861,66 @@ def pe_case(name, al, pairs, cap, max_steps, device):
     return row, (a, kw, out, plain)
 
 
-def phase_pe(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
-             refs):
-    """K10r against its plain version on the card under two policies on
-    the dense pair and one on the pair thinned to offRate 13; the first
+def k12_case(pair, mat, lens, efw, device):
+    """K12 against its plain version on one matrix, then both timed.
+    Bound: K2's model (bounds), with the LF steps and words the plain
+    version counts; the index bytes are the smaller of both indexes read
+    once and every sector the search touches (an ftab entry's two, each
+    range end's occ and bwt sectors per LF step)."""
+    top, bot = exact_ranges_cat(pair, mat, lens, efw)
+    n = mat.shape[0]
+    work = torch.zeros(2, n, dtype=torch.int64, device=device)
+    ptop, pbot = exact_ranges_cat_plain(pair, mat, lens, efw, work)
+    err = max_abs_err([(top, ptop), (bot, pbot)])
+    require(err == 0, f"K12 disagrees with its plain version by {err} on "
+            f"{n} lanes")
+    lf_steps, words = (int(x) for x in work.sum(1))
+    n_ftab = int((lens >= pair.ftab_chars).sum())
+    sectors = 2 * n_ftab + 2 * 2 * lf_steps
+    index = min(sum(_nbytes(f.bwt, f.occ, f.ftab_hi, f.ftab_lo)
+                    for f in (pair.fw, pair.bw)), SECTOR * sectors)
+    return dict(
+        ms=time_ms(lambda: exact_ranges_cat(pair, mat, lens, efw), device,
+                   20),
+        plain_ms=time_ms(lambda: exact_ranges_cat_plain(pair, mat, lens,
+                                                        efw), device, 5),
+        **bounds(index + _nbytes(mat, lens, efw) + 16 * n, 2 * lf_steps, 0,
+                 words, sectors), index_bytes=index,
+        max_abs_err=err, lanes=n, L=mat.shape[1],
+        mirror_lanes=int((efw == 0).sum()),
+        lanes_hit=int((bot > top).sum()), lf_steps_per_end=lf_steps)
+
+
+def k12_strands(rng, genome, rep_starts, seg_len, device):
+    """K12_STRANDS strands of the kernels phase's read mix (both strands
+    of K12_STRANDS / 2 reads, right-aligned as K2 takes them), the odd
+    lanes reversed for the mirror index.  -> (mat, lens, efw) on device."""
+    codes, lens, *_ = make_reads(rng, genome, rep_starts, seg_len,
+                                 K12_STRANDS // 2)
+    mat, lens = strand_matrix(codes, lens)
+    n, L = mat.shape
+    efw = (np.arange(n) % 2 == 0).astype(np.uint8)
+    col = np.arange(L)[None, :]
+    ln = lens[:, None]
+    src = np.where(col >= L - ln, 2 * L - 1 - ln - col, col)
+    rev = np.take_along_axis(mat, src, 1)
+    mat = np.where(efw[:, None] == 1, mat, rev).astype(np.uint8)
+    return (torch.from_numpy(mat).to(device), torch.from_numpy(lens).to(device),
+            torch.from_numpy(efw).to(device))
+
+
+def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
+             idx_bw, refs):
+    """K12 against its plain version on phase 0's lanes and at
+    K12_STRANDS strands, both timed; K10r against its plain version on the
+    card under two policies on the dense pair and one on the pair thinned
+    to offRate 13; the first (rec_cap 1, the lanes phase 0 leaves)
     timed."""
     pairs = pe_pairs(rng, genome, rep_starts, seg_len, PE_PAIRS,
                      os.path.join(work, "pe_1.fq"),
                      os.path.join(work, "pe_2.fq"))
     thin = (thinned_index(idx), thinned_index(idx_bw))
-    cases, stats = {}, None
+    cases, stats = {}, {}
     for i, (name, akw, (k, m), cap, walk) in enumerate(PE_POLICIES):
         t = time.time()
         al = DevicePairedBestAligner(
@@ -1872,11 +1934,23 @@ def phase_pe(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
         cases[name] = row
         if i:
             continue
+        main = k12_case(al.pair, *al.exact_inputs(
+            al.plan(pairs), list(range(len(pairs)))), device)
+        big = k12_case(al.pair, *k12_strands(
+            rng_k12, genome, rep_starts, seg_len, device), device)
+        row["phase0_lanes"] = main["lanes"]
+        require(row["lanes"] < main["lanes"],
+                f"pe {name}: phase 0 settled no lane")
+        stats["K12"] = dict(
+            name="K12 exact_ranges_cat (K1 inlined)", route="cuda",
+            source=SOURCE, replaces="bowtie_tpu/align/pe_device.py:37",
+            **main, library_ms=None, library=NO_LIBRARY, match=True,
+            at_strands=big)
         work_c = {}
         plain(work_c)
         row["work"] = work_c
         nbytes = k10_bytes(work_c, a["args"][2], kw["L"], out)
-        stats = {"K10r": dict(
+        stats["K10r"] = dict(
             name="K10r best_machine, record mode (K1/K5 inlined)",
             route="cuda", source=BEST_SOURCE,
             replaces="bowtie_tpu/align/best_device.py:1030 (_step_main "
@@ -1890,9 +1964,9 @@ def phase_pe(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
                      + work_c["sa_loads"]),
             library_ms=None, library=NO_LIBRARY_K10R, max_abs_err=0,
             lanes=row["lanes"], rank_ends=work_c["rank_ends"],
-            bytes=nbytes, policy=name)}
+            bytes=nbytes, policy=name)
     require(cases[PE_POLICIES[0][0]]["capped_lanes"] > 0,
-            "pe: no lane reached rec_cap")
+            "pe: no lane reached rec_cap 1")
     walk = cases[PE_POLICIES[-1][0]]
     require(not walk["dense"] and walk["off_rate"] == 13,
             "the walk case ran on a dense pair")
@@ -1902,47 +1976,79 @@ def phase_pe(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
 
 
 def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
-    """The default paired command and -v 2 -a -m 1 -S through the CLI on
-    the card, each run twice, the second counted from zero and traced;
-    every reported mate checked against the genome; the default command on
-    a slice held to the V1 host engine, and -p 4 to -p 1."""
+    """The default paired command (rec_cap 1 after phase 0) and -v 2 -a -m
+    1 -S through the CLI on the card, each run twice, the second counted
+    from zero and traced, with the lanes K10r ran and those that
+    overflowed, by mate length, per round; every reported mate checked
+    against the genome; the default command on a slice held to the V1
+    host engine, and -p 4 to -p 1."""
     genome_chars = CHARS[genome].tobytes()
     m1 = os.path.join(work, "cli_pe_1.fq")
     m2 = os.path.join(work, "cli_pe_2.fq")
     pe_pairs(rng, genome, rep_starts, seg_len, CLI_PE_PAIRS, m1, m2)
     runs, rows = {}, {}
     real_build = cli.build_aligner
-    for tag, args, sam in (
-            ("-1/-2 (default: -n 2 -k 1 --fr -X 250)", [], False),
+    real_machine = pe.run_machine
+    for tag, args, sam, cap in (
+            ("-1/-2 (default: -n 2 -k 1 --fr -X 250)", [], False, 1),
             ("-1/-2 -v 2 -a -m 1 -S", ["-v", "2", "-a", "-m", "1", "-S"],
-             True)):
+             True, None)):
         out = os.path.join(work, "cli_pe%d.out" % len(args))
         argv = args + ["-x", base, "-1", m1, "-2", m2, out]
-        built = []
+        built, k10r = [], []
 
         def build(*a, **k):
             built.append(real_build(*a, **k))
             return built[-1]
+
+        def machine(*a, **k):      # the recorder's K10r launches, kept
+            res = real_machine(*a, **k)
+            k10r[-1].append((k["rec_cap"], a[2]["qlen"], res[0]["overflow"]))
+            return res
         cli.build_aligner = build
+        pe.run_machine = machine
         try:
+            k10r.append([])
             first_s = run_cli(argv, device)[0]
+            k10r.append([])
             ((wall, err), busy), launches = counted(lambda: profiled(
                 lambda: run_cli(argv, device)), device)
         finally:
             cli.build_aligner = real_build
+            pe.run_machine = real_machine
         al = built[-1]
         require(isinstance(al, DevicePairedBestAligner),
                 f"cli {tag} built {type(al).__name__}")
+        require(al.rec_cap == cap, f"cli {tag}: rec_cap {al.rec_cap}")
         require(launches["best_record"] > 0 and launches["best_pack"] > 0,
                 f"cli {tag} launched {launches}")
+        require((launches["exact_ranges_cat"] > 0) == (cap == 1)
+                and (al.synthesized > 0) == (cap == 1),
+                f"cli {tag}: phase 0 settled {al.synthesized} lanes in "
+                f"{launches['exact_ranges_cat']} K12 launches")
         checked = (check_sam_md if sam else check_verbose_mm)(out,
                                                               genome_chars)
         require(checked > 0, f"cli {tag}: no alignments")
+        by_cap = {}
+        for c, qlen, ovf in k10r[-1]:
+            r = by_cap.setdefault(f"rec_cap {c}", {"lanes": 0,
+                                                   "overflow_by_len": {}})
+            r["lanes"] += len(qlen)
+            lens, counts = np.unique(qlen[ovf.cpu().numpy() != 0],
+                                     return_counts=True)
+            for ln, ct in zip(lens.tolist(), counts.tolist()):
+                r["overflow_by_len"][ln] = r["overflow_by_len"].get(ln, 0) + ct
         rows[tag] = {"wall_s": wall, "first_run_s": first_s,
                      "pairs_per_s": CLI_PE_PAIRS / wall,
                      "device_busy_s": busy, "device_busy_share": busy / wall,
                      "launches": launches, "fallbacks": al.fallbacks,
                      "escalations": al.escalations, "rec_cap": al.rec_cap,
+                     "k12_launches": launches["exact_ranges_cat"],
+                     "lanes": 4 * CLI_PE_PAIRS,
+                     "synthesized": al.synthesized,
+                     "synthesized_share": al.synthesized / (4 * CLI_PE_PAIRS),
+                     "k10r_lanes": sum(r["lanes"] for r in by_cap.values()),
+                     "k10r_by_round": by_cap,
                      "mates_checked": checked,
                      "summary": err.strip().splitlines()}
         runs["cli " + tag] = launches
@@ -2035,11 +2141,13 @@ def main() -> int:
     runs.update(phase_cli_best(rng, work, device, base, genome, rep_starts,
                                seg_len, gpu))
     refs = unpack_reference(*read_bitpair_reference(base), plen=idx.plen)
-    stats.update(phase_pe(rng, work, device, genome, rep_starts, seg_len,
-                          idx, idx_bw, refs))
+    stats.update(phase_pe(rng, np.random.default_rng(args.seed + 2), work,
+                          device, genome, rep_starts, seg_len, idx, idx_bw,
+                          refs))
     runs.update(phase_cli_pe(rng, work, device, base, genome, rep_starts,
                              seg_len, gpu))
-    counter = {"K2": "exact_ranges", "K3w": "resolve_rows_walk",
+    counter = {"K2": "exact_ranges", "K12": "exact_ranges_cat",
+               "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
                "K9": "derive_b_jobs", "K10": "best_machine",

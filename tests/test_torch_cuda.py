@@ -1,12 +1,14 @@
 """The CUDA kernels (csrc/exact.cu, csrc/dfs.cu, csrc/best.cu) against
 their plain PyTorch versions, on the card: K2, K3 (walk and dense SA) and
 K4 must agree element for element, also on an index whose SA sample is
-thinned so that most walks pass MAX_WALK and end with ok=False; K6, K7 and
+thinned so that most walks pass MAX_WALK and end with ok=False; K12 (K2
+with a per-lane choice of the forward or the mirror index); K6, K7 and
 K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
 walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
 derives; K10 and K11 (the best-first machine) under -v and seeded
 policies, dense and walk-left; K10r (its record mode, the paired
-recorder's fused fw-DAG + rc-DAG run) capped and uncapped; K16 (the
+recorder's fused fw-DAG + rc-DAG run) capped and uncapped, and at rec_cap
+1 on the lanes the recorder's phase 0 (K12) leaves; K16 (the
 prefix-doubling round of csrc/sa.cu) round for round, and the SA it builds
 against SA-IS; and the CLI on the card (-v 0/1/2/3, -n, --best, -M,
 --sanity, --stats, paired input with -p, and bowtie-build --jax-sa) must
@@ -102,6 +104,38 @@ def test_kernels_match_plain(card, form):
     assert kernels.LAUNCHES["one_row"] == 1
     assert kernels.LAUNCHES["resolve_rows_sa" if dense
                             else "resolve_rows_walk"] == 1
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["mixed", "short"])
+def test_exact_cat_matches_plain(card, short):
+    """K12 equals its plain version: lanes on the forward and the mirror
+    index mixed in one launch, reads with Ns, reads shorter than
+    ftabChars (short: every read, so that the matrix has no ftab
+    columns)."""
+    from bowtie_tpu_torch.align.dfs_device import build_fmpair
+    from bowtie_tpu_torch.align.pe_device import (exact_ranges_cat,
+                                                  exact_ranges_cat_plain)
+    idx, refs = card
+    pair = build_fmpair(idx, read_ebwt(BASE + ".rev"), "cuda")
+    reads = _reads(refs, 20000, 5)
+    rng = np.random.default_rng(6)
+    efw = rng.integers(0, 2, len(reads)).astype(np.uint8)
+    if short:
+        reads = [q[:k % pair.ftab_chars] for k, q in enumerate(reads)]
+    # a mirror lane consumes its read forward
+    reads = [q if e else q[::-1].copy() for q, e in zip(reads, efw)]
+    mat, lens = tex.right_align(reads)
+    args = (torch.from_numpy(mat).cuda(), torch.from_numpy(lens).cuda(),
+            torch.from_numpy(efw).cuda())
+    kernels.reset_launches()
+    top, bot = exact_ranges_cat(pair, *args)
+    ptop, pbot = exact_ranges_cat_plain(pair, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["exact_ranges_cat"] == 1
+    assert torch.equal(top, ptop) and torch.equal(bot, pbot)
+    hit = (bot > top).cpu().numpy()
+    assert hit[efw == 1].sum() > 1000 and hit[efw == 0].sum() > 1000
+    assert (~hit).sum() > 1000
 
 
 @pytest.mark.parametrize("form", ["dense", "walk"])
@@ -337,22 +371,29 @@ def _pairs(refs, n, seed, tmp_path):
     (dict(mode="n", seed_mms=2), 12, True),
     (dict(mode="v", v=2), None, True),
     (dict(mode="n", seed_mms=3, seed_len=20), None, False),
-    (dict(mode="v", v=3), 12, False)],
+    (dict(mode="v", v=3), 12, False),
+    (dict(mode="n", seed_mms=2), 1, True)],
     ids=["n2_cap12", "v2_uncapped", "n3_l20_uncapped_walk",
-         "v3_cap12_walk"])
+         "v3_cap12_walk", "n2_cap1_after_phase0"])
 def test_record_kernel_matches_plain(card, tmp_path, kw, cap, dense):
     """K10r equals its plain version on the recorder's fused lanes (every
-    pair's four streams, fw-DAG and rc-DAG in one launch) on every lane
-    the plain version finishes without overflow, overflow flags alike."""
+    pair's four streams, fw-DAG and rc-DAG in one launch; at rec_cap 1 the
+    lanes phase 0 leaves) on every lane the plain version finishes without
+    overflow, overflow flags alike."""
     from bowtie_tpu_torch.align import best_device as tbd
     from bowtie_tpu_torch.align.pe_device import DevicePairedBestAligner
     from bowtie_tpu_torch.align.policy import KPolicy
     idx, refs = card
     pairs, _m1, _m2 = _pairs(refs, 300, 17, tmp_path)
+    # the -k 1 policy records at rec_cap 1, the lanes phase 0 leaves; the
+    # other caps run every lane, as round 2 (uncapped) does
     al = DevicePairedBestAligner(idx, read_ebwt(BASE + ".rev"), refs,
                                  KPolicy(), compact=not dense, device="cuda",
                                  **kw)
-    a = al.record_inputs(pairs)
+    assert al.rec_cap == 1
+    kernels.reset_launches()
+    a = al.record_inputs(pairs, cap)
+    assert kernels.LAUNCHES["exact_ranges_cat"] == (cap == 1)
     pair, cfg, host, seeds = a["args"]
     kernels.reset_launches()
     out, _ = tbd.run_machine(*a["args"], **a["kw"], rec_cap=cap)
@@ -372,7 +413,10 @@ def test_record_kernel_matches_plain(card, tmp_path, kw, cap, dense):
     for key in ("hits", "nhits", "mode"):
         assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
     assert int(out["nhits"].sum()) > 0
-    assert len(seeds) == 4 * len(pairs)
+    if cap == 1:
+        assert 0 < len(seeds) < 4 * len(pairs)
+    else:
+        assert len(seeds) == 4 * len(pairs)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["best_record"] == 1
     assert kernels.LAUNCHES["best_machine"] == 0

@@ -1,9 +1,10 @@
 """DevicePairedBestAligner(device="cpu") (the anchor streams recorded by
 the plain K10r, the interleave replayed on the host) against the
 reference's V1 host engine, result for result, on the pairs of
-tests/test_torch_pe_streams.py: the default -n 2 -k 1 policy, whose
-capped streams (rec_cap 12) some pairs outrun, so that round 2 re-records
-them (`escalations`), and pairs with an overflowing lane or a 3-base or
+tests/test_torch_pe_streams.py: the default -n 2 -k 1 policy, recorded
+with phase 0 on the plain K12, then the plain K10r at rec_cap 1, whose
+capped streams some pairs outrun, so that round 2 re-records them
+(`escalations`), and pairs with an overflowing lane or a 3-base or
 300-base mate re-run on the host drivers (`fallbacks`)."""
 from bowtie_tpu.align import best_factories as jbf
 from bowtie_tpu.align import golden as jg
@@ -28,9 +29,10 @@ def test_aligner_matches_host_engine(data):
         JPolicy(), **kw)
     tal = tpe.DevicePairedBestAligner(data["ti"], data["tb"], data["trefs"],
                                       TPolicy(), device="cpu", **kw)
-    assert tal.rec_cap == 12
+    assert tal.rec_cap == 1
     want = [pe_key(r) for r in jal.align_batch(data["jp"])]
     got = [pe_key(r) for r in tal.align_batch(data["tp"])]
     assert got == want
     assert sum(1 for r in got if r[0]) > N_PAIRS // 2
     assert tal.escalations > 0 and tal.fallbacks >= 2
+    assert tal.synthesized > 0
