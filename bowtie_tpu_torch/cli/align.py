@@ -297,11 +297,7 @@ def main(argv=None, device=None) -> int:
                   f"the index's offrate ({idx.off_rate}); ignoring",
                   file=sys.stderr)
         else:
-            import copy
-            step = 1 << (args.offrate - idx.off_rate)
-            idx = copy.copy(idx)            # don't mutate the cache
-            idx.offs = idx.offs[::step].copy()
-            idx.off_rate = args.offrate
+            idx = idx.with_off_rate(args.offrate)   # the cache stays
     if args.time:
         print(f"Time loading ebwt: {time.time()-t0:.2f}s", file=sys.stderr)
 

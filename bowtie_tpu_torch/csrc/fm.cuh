@@ -40,6 +40,15 @@ struct BtFM {
     int32_t off_rate;
 };
 
+// RandomSource::nextU32 (random_source.h:36-42): the per-read LCG of the
+// machines' random draws (dfs.cu, best.cu, ilv.cu)
+__device__ __forceinline__ uint32_t rng_next(uint32_t& state) {
+    const uint32_t s1 = 1664525u * state + 1013904223u;
+    const uint32_t s2 = 1664525u * s1 + 1013904223u;
+    state = s2;
+    return (s1 >> 16) ^ s2;
+}
+
 __device__ __forceinline__ uint32_t occ_get(const uint4& o, uint32_t c) {
     return c == 0 ? o.x : c == 1 ? o.y : c == 2 ? o.z : o.w;
 }

@@ -40,6 +40,7 @@ flat device layout (2-bit-packed BWT words plus occ checkpoints).
 """
 from __future__ import annotations
 
+import copy
 import io
 import os
 from dataclasses import dataclass, field
@@ -96,6 +97,15 @@ class EbwtIndex:
     @property
     def bwt_len(self) -> int:
         return self.length + 1
+
+    def with_off_rate(self, off_rate: int) -> "EbwtIndex":
+        """A copy whose SA sample keeps every 2^(off_rate - off_rate of
+        self)-th entry (the Ebwt constructor's offRate override,
+        ebwt.h:438-441); self is not changed."""
+        t = copy.copy(self)
+        t.offs = self.offs[::1 << (off_rate - self.off_rate)].copy()
+        t.off_rate = off_rate
+        return t
 
     def occ_checkpoints(self) -> np.ndarray:
         """occ[k, c] = count of stored code c in bwt[0 : k*OCC_BLOCK),

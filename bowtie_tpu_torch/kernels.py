@@ -23,7 +23,7 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
-SOURCES = ("exact.cu", "dfs.cu", "best.cu", "sa.cu")
+SOURCES = ("exact.cu", "dfs.cu", "best.cu", "sa.cu", "ilv.cu")
 HEADERS = ("fm.cuh",)
 
 # kernel launches since the last reset_launches(), by wrapper
@@ -32,7 +32,7 @@ LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
             "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
             "best_machine": 0, "best_record": 0, "best_pack": 0,
-            "sa_round": 0}
+            "sa_round": 0, "pe_ilv": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -157,6 +157,8 @@ _SIGNATURES = {
     "bt_best_init_width": [ctypes.c_int, ctypes.c_int],
     # (r, n1, k, big, nr, order, maxg, scratch, stream)
     "bt_sa_round": [_P] + [ctypes.c_int] * 3 + [_P] * 4 + [_P],
+    # (args, stream); IlvArgs is align/pe_ilv_device.py's
+    "bt_pe_ilv": [_P, _P],
 }
 
 

@@ -125,21 +125,35 @@ Phases, each printing one JSON line:
              (uncapped, every lane) on the dense pair, and -n 2 -k 1 at
              rec_cap 1 on 128 pairs with the pair thinned to offRate 13
              (walk-left).  The first policy is timed; K10r's bytes are
-             those the run reads and writes (k10_bytes).
+             those the run reads and writes (k10_bytes).  K13 (pe_ilv,
+             the V1 interleave, chase and rescue) held exactly to its
+             plain version on the card, all 12 outputs and each pair's
+             iterations, on round 1's streams (rec_cap 1 after phase 0)
+             of the 512 pairs (timed: median of 20, plain median of 5;
+             its bound from what the plain version counts, k13_bounds),
+             of the 128 pairs on the offRate-13 pair (walk-left; many
+             pairs run out of the 4,096-iteration budget) and of 256
+             pairs of the in-repo small_index (five fragments: the
+             fragment search of joinedToTextOff; small_pairs, from the
+             K12 generator).
 13. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
              default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
-             --fr -X 250; phase 0 on K12, then K10r at rec_cap 1) and -v 2
+             --fr -X 250; phase 0 on K12, K10r at rec_cap 1, then K13) and -v 2
              -a -m 1 -S, each run twice and the second counted from zero
              and traced, with the lanes phase 0 settled (synthesized), the
              lanes K10r ran and those that overflowed, by mate length, per
-             round (rec_cap 1, then None for round 2), the pairs re-run on
-             the host drivers (fallbacks) and re-recorded uncapped
-             (escalations) counted; every reported mate must equal its
+             round (rec_cap 1, then None for round 2), the pairs K13
+             decided, escalated and left to the host replay per round
+             and its launches, the pairs re-run on the host drivers
+             (fallbacks) and re-recorded uncapped (escalations) counted; every reported mate must equal its
              reference substring except at its reported mismatches.  The
              default command on the first 1,000 pairs must write what the
              port's V1 host engine writes (build_aligner(host_engine=
              True)), and with -p 4 on the first 2,000 what it writes with
-             -p 1.
+             -p 1.  K13 held exactly to its plain version on round 1's
+             streams of the CLI's first batch (8,192 pairs, the default
+             command's aligner), timed as in pe: the numbers of K13's
+             line in the kernels line, the 512 pairs of pe beside them.
 
 Then the {"kernels": [...]} line (launches: the CLI runs, cli build
 included; K3 dense's library-run launches beside its 0), the script's
@@ -152,9 +166,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import copy
 import dataclasses
 import io
+import itertools
 import json
 import os
 import re
@@ -180,6 +194,7 @@ from bowtie_tpu_torch.align.dfs_jobs import (  # noqa: E402
 from bowtie_tpu_torch.align.drivers import OracleAligner  # noqa: E402
 from bowtie_tpu_torch.align.golden import GoldenFM  # noqa: E402
 from bowtie_tpu_torch.align import pe_device as pe  # noqa: E402
+from bowtie_tpu_torch.align import pe_ilv_device as ilv  # noqa: E402
 from bowtie_tpu_torch.align.pe_device import (  # noqa: E402
     DevicePairedBestAligner, exact_ranges_cat, exact_ranges_cat_plain)
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
@@ -701,12 +716,9 @@ def time_once(fn, device):
     return res, a.elapsed_time(b)
 
 
-def thinned_index(idx, by=256):
-    """idx with only every `by`-th SA sample kept (offRate + log2 by)."""
-    t = copy.copy(idx)
-    t.offs = idx.offs[::by].copy()
-    t.off_rate = idx.off_rate + by.bit_length() - 1
-    return t
+def thinned_index(idx):
+    """idx with only every 256th SA sample kept (offRate + 8)."""
+    return idx.with_off_rate(idx.off_rate + 8)
 
 
 def mm_reads(rng, genome, rep_starts, seg_len, n, path):
@@ -1740,10 +1752,18 @@ PE_POLICIES = (
      dict(mode="n", seed_mms=2), (1, INF), 1, True))
 K12_STRANDS = 1 << 21          # K12 timed beside K2, on as many strands
 CLI_PE_PAIRS = 20_000
+CLI_BATCH = 8192               # the CLI's --batch-size default
 PE_HOST_SLICE = 1000           # pairs held to the V1 host engine
 PE_P_SLICE = 2000              # pairs run with -p 4 and -p 1
 NO_LIBRARY_K10R = ("n/a: no single PyTorch call records a best-first "
                    "search's ranges")
+NO_LIBRARY_K13 = "n/a: no single PyTorch call runs the V1 interleave"
+ILV_SOURCE = "bowtie_tpu_torch/csrc/ilv.cu"
+SMALL_PE_PAIRS = 256           # K13 on the in-repo 5-fragment index
+# a timed K13 case's numbers in the kernels line
+K13_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_ms", "ops_ms",
+            "sector_ms", "bytes", "int_ops", "max_abs_err", "pairs",
+            "lanes", "max_iterations")
 
 
 def pe_pairs(rng, genome, rep_starts, seg_len, n, path1, path2):
@@ -1909,6 +1929,122 @@ def k12_strands(rng, genome, rep_starts, seg_len, device):
             torch.from_numpy(efw).to(device))
 
 
+def small_pairs(rng, refs, n, path1, path2):
+    """n --fr pairs of PE_LEN-base mates of the in-repo small genome
+    (three records in five fragments): fragments of 100-250 bases from
+    either strand, 0-2 mismatches a mate, every 10th pair with a random
+    mate 1, every 20th with an N in mate 2.  -> the pairs, read back."""
+    L = PE_LEN
+    recs = [[], []]
+    for k in range(n):
+        r = np.minimum(refs[k % len(refs)], 4).astype(np.uint8)
+        if k % 2:
+            r = np.where(r < 4, 3 - r, 4)[::-1]
+        frag = int(rng.integers(100, 251))
+        p = int(rng.integers(0, len(r) - frag))
+        m1 = r[p:p + L].copy()
+        dn = r[p + frag - L:p + frag]
+        m2 = np.where(dn < 4, 3 - dn, 4)[::-1].astype(np.uint8)
+        if k % 10 == 3:
+            m1 = rng.integers(0, 4, L).astype(np.uint8)
+        for q in (m1, m2):
+            for _ in range(k % 3):
+                q[int(rng.integers(L))] = rng.integers(0, 4)
+        if k % 20 == 7:
+            m2[int(rng.integers(L))] = 4
+        for j, q in enumerate((m1, m2)):
+            recs[j].append(b"@s%d/%d\n%s\n+\n%s\n" % (
+                k, j + 1, CHARS[q].tobytes(),
+                (rng.integers(2, 41, L) + 33).astype(np.uint8).tobytes()))
+    for path, rows in ((path1, recs[0]), (path2, recs[1])):
+        with open(path, "wb") as f:
+            f.writelines(rows)
+    return list(PairedReadSource([path1], [path2]).pairs())
+
+
+def k13_bounds(work, B: int, S) -> dict:
+    """K13's bound from what its plain version counted in this run.
+    Bytes, each value at the least width its range needs: of each stream
+    record popped its top and bottom rows (4 bytes each), driver and done
+    flag (1 each); the distinct SA entries (4, dense or sampled), occ
+    checkpoints (16) and BWT blocks (32) the chases read; the reference
+    bytes the zig-zag scans read; of each scanned query its bases up to
+    the last one a scan compared and, when seeded, the distinct penalties
+    of the mismatches compared (1 byte each); of every lane its seed (4),
+    the seven [4] tables of its streams and queries (nrec, capped, qlen,
+    alen, qn, sol, wok: counts, flags and lengths, 1 byte each), its
+    insert limits (2 each: at most 2,048) and its outputs (res_tidx,
+    res_toff, res_left 4 bytes each, res_ham and the iterations 2, the
+    other eight 1); the fragment table (start, index, offset: 4 each).
+    Operations: per LF step a rank and a walk step over the words it
+    needs (bounds' model), per compared base two (compare, count).
+    Sectors: a record, a resolved row and a query row one each, an LF
+    step two, the scanned reference bytes in 32-byte sectors."""
+    lane = 4 + 7 * 4 + 2 * 2 + (3 * 4 + 2 * 2 + 8)
+    nbytes = (10 * work["pops"] + 4 * work["sa_entries"]
+              + 16 * work["occ_entries"] + 32 * work["bwt_blocks"]
+              + work["ref_bytes"] + work["query_bases"]
+              + work["pen_entries"] + lane * B + 12 * S.nfrag)
+    b = bounds(nbytes, work["lf_steps"], work["lf_steps"], work["words"],
+               work["pops"] + work["rows"] + 2 * work["lf_steps"]
+               + work["scans"] + -(-work["ref_bytes"] // SECTOR))
+    cmp_ms = 1e3 * 2 * work["bases"] / INT32_OPS_PER_S
+    if cmp_ms + b["ops_ms"] > b["bound_ms"]:
+        b.update(bound_ms=cmp_ms + b["ops_ms"], bound_by="operations")
+    b.update(ops_ms=cmp_ms + b["ops_ms"],
+             int_ops=b["int_ops"] + 2 * work["bases"], bytes=nbytes)
+    return b
+
+
+def k13_case(name, al, pairs, device, timed):
+    """K13 against its plain version on the card on round 1's streams of
+    `pairs` (rec_cap 1 after phase 0, as align_batch records them): all
+    12 outputs and each lane's iterations must be equal.  Timed: K13
+    median of 20, the plain version median of 5.  -> the case's row
+    (with its bound from what the plain version counted)."""
+    idxs = list(range(len(pairs)))
+    s1 = fill_seed_caches([p[0] for p in pairs], al.global_seed)
+    sts, ovd = al._record_all(al.plan(pairs), idxs, s1, 1)
+    items = [(i, sts[i]) for i in idxs if not ovd[i]]
+    S, st0, lanes, host = al.ilv_inputs(pairs, items, s1)
+    require(lanes and not host, f"K13 {name}: {len(lanes)} lanes, "
+            f"{len(host)} left to the host replay")
+
+    def plain(work=None):
+        return ilv.run_ilv_plain(al.pair, {k: v.clone()
+                                           for k, v in st0.items()},
+                                 S, work)
+    kernels.reset_launches()
+    out, iters = ilv.run_ilv(al.pair, st0, S)
+    sync(device)
+    require(kernels.LAUNCHES["pe_ilv"] == 1, "K13 did not launch once")
+    (pout, piters), plain_ms = time_once(plain, device)
+    err = max_abs_err([(out[k], pout[k]) for k in ilv.OUT_KEYS]
+                      + [(iters, piters)])
+    require(err == 0, f"K13 {name}: the kernel disagrees with its plain "
+            f"version by {err}")
+    o = {k: v.cpu() for k, v in out.items()}
+    row = dict(pairs=len(pairs), lanes=len(lanes), Lq=S.Lq,
+               dense=S.dense, off_rate=al.pair.fw.off_rate,
+               nfrag=S.nfrag, max_steps=S.max_steps,
+               decided=int((o["escalate"] == 0).sum()),
+               found=int(o["res_found"].sum()),
+               found_rc_phase=int((o["res_found"] * o["res_phase"]).sum()),
+               escalated=int(o["escalate"].sum()),
+               budget_lanes=int((o["mode"] != ilv.I_DONE).sum()),
+               max_iterations=int(iters.max()), plain_ms=plain_ms,
+               max_abs_err=err)
+    require(row["found"] > 0, f"K13 {name}: no pair found")
+    if timed:
+        work = {}
+        plain(work)
+        row.update(
+            ms=time_ms(lambda: ilv.run_ilv(al.pair, st0, S), device, 20),
+            plain_ms=time_ms(plain, device, 5),
+            work=work, **k13_bounds(work, len(lanes), S))
+    return row
+
+
 def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
              idx_bw, refs):
     """K12 against its plain version on phase 0's lanes and at
@@ -1920,7 +2056,7 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
                      os.path.join(work, "pe_1.fq"),
                      os.path.join(work, "pe_2.fq"))
     thin = (thinned_index(idx), thinned_index(idx_bw))
-    cases, stats = {}, {}
+    cases, stats, k13_rows = {}, {}, {}
     for i, (name, akw, (k, m), cap, walk) in enumerate(PE_POLICIES):
         t = time.time()
         al = DevicePairedBestAligner(
@@ -1932,8 +2068,21 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
             THIN_PE_STEPS if walk else PE_STEPS, device)
         row["wall_s"] = time.time() - t
         cases[name] = row
+        if walk:
+            k13_rows["offRate 13, 128 pairs"] = k13_case(
+                "offRate 13", al, pairs[:THIN_PE_PAIRS], device, False)
         if i:
             continue
+        k13 = k13_case(name, al, pairs, device, True)
+        k13_rows[f"{PE_PAIRS} pairs, dense"] = k13
+        stats["K13"] = dict(
+            name="K13 pe_ilv (K1 lf_row inlined)", route="cuda",
+            source=ILV_SOURCE,
+            replaces="bowtie_tpu/align/pe_ilv_device.py:527 run_ilv_chunk "
+                     "(:503 _machine_step: :151 _step_ilv, :262 "
+                     "_step_chase, :400 _step_scan), :542 run_ilv",
+            **{k: k13[k] for k in K13_KEYS},
+            library_ms=None, library=NO_LIBRARY_K13, policy=name)
         main = k12_case(al.pair, *al.exact_inputs(
             al.plan(pairs), list(range(len(pairs)))), device)
         big = k12_case(al.pair, *k12_strands(
@@ -1970,7 +2119,23 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
     walk = cases[PE_POLICIES[-1][0]]
     require(not walk["dense"] and walk["off_rate"] == 13,
             "the walk case ran on a dense pair")
-    emit({"phase": "pe", "cases": cases,
+    # K13 on the in-repo index of five fragments (the 4.6 Mbp genome is
+    # one record, which never reaches joinedToTextOff's fragment search)
+    gidx, gidx_bw = read_ebwt(GOLD), read_ebwt(GOLD + ".rev")
+    grefs = unpack_reference(*read_bitpair_reference(GOLD),
+                             plen=gidx.plen)
+    al = DevicePairedBestAligner(gidx, gidx_bw, grefs, KPolicy(),
+                                 device=device)
+    gpairs = small_pairs(rng_k12, grefs, SMALL_PE_PAIRS,
+                         os.path.join(work, "small_pe_1.fq"),
+                         os.path.join(work, "small_pe_2.fq"))
+    k13_rows["small_index, 5 fragments"] = k13_case(
+        "small_index", al, gpairs, device, False)
+    require(k13_rows["small_index, 5 fragments"]["nfrag"] == 5,
+            "small_index is not the five-fragment index")
+    require(k13_rows["offRate 13, 128 pairs"]["dense"] is False,
+            "K13's walk case ran on a dense pair")
+    emit({"phase": "pe", "cases": cases, "k13": k13_rows,
           "ms": {k: v["ms"] for k, v in stats.items()}})
     return stats
 
@@ -1981,7 +2146,8 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     from zero and traced, with the lanes K10r ran and those that
     overflowed, by mate length, per round; every reported mate checked
     against the genome; the default command on a slice held to the V1
-    host engine, and -p 4 to -p 1."""
+    host engine, and -p 4 to -p 1; K13 held to its plain version, and
+    timed, on the first batch.  -> (launches by run, the K13 batch row)."""
     genome_chars = CHARS[genome].tobytes()
     m1 = os.path.join(work, "cli_pe_1.fq")
     m2 = os.path.join(work, "cli_pe_2.fq")
@@ -2026,6 +2192,13 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
                 and (al.synthesized > 0) == (cap == 1),
                 f"cli {tag}: phase 0 settled {al.synthesized} lanes in "
                 f"{launches['exact_ranges_cat']} K12 launches")
+        # K13 takes the -k 1 policy only, and decides most of its pairs
+        r1 = al.ilv_by_round["round 1"]
+        require(al.use_ilv == (cap == 1)
+                and (launches["pe_ilv"] > 0) == (cap == 1)
+                and (r1["decided"] > CLI_PE_PAIRS // 2) == (cap == 1),
+                f"cli {tag}: {launches['pe_ilv']} K13 launches, "
+                f"{al.ilv_by_round}")
         checked = (check_sam_md if sam else check_verbose_mm)(out,
                                                               genome_chars)
         require(checked > 0, f"cli {tag}: no alignments")
@@ -2049,9 +2222,18 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
                      "synthesized_share": al.synthesized / (4 * CLI_PE_PAIRS),
                      "k10r_lanes": sum(r["lanes"] for r in by_cap.values()),
                      "k10r_by_round": by_cap,
+                     "k13_launches": launches["pe_ilv"],
+                     "k13_by_round": al.ilv_by_round,
+                     "k13_decided": al.ilv_decided,
                      "mates_checked": checked,
                      "summary": err.strip().splitlines()}
         runs["cli " + tag] = launches
+        if cap == 1:
+            # K13 on the streams of the CLI's first batch, as round 1
+            # gives them to it, with the aligner the CLI built
+            batch = list(itertools.islice(
+                PairedReadSource([m1], [m2]).pairs(), CLI_BATCH))
+            k13_batch = k13_case("cli batch", al, batch, device, True)
     # the default command on a slice: the card's bytes are the V1 host
     # engine's
     h1, h2 = head_pairs(m1, m2, PE_HOST_SLICE, "pe_host", work)
@@ -2083,12 +2265,13 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     require(pouts["4"][:2] == pouts["1"][:2],
             "cli_pe: -p 4 writes other records than -p 1")
     emit({"phase": "cli_pe", "pairs": CLI_PE_PAIRS, "gpu": gpu,
-          "runs": rows, "host_slice_pairs": PE_HOST_SLICE,
+          "runs": rows, "k13_batch": k13_batch,
+          "host_slice_pairs": PE_HOST_SLICE,
           "host_slice_bytes": len(outs["host"][0]),
           "host_slice_s": {k: v[2] for k, v in outs.items()},
           "p_slice_pairs": PE_P_SLICE,
           "p_slice_s": {k: v[2] for k, v in pouts.items()}})
-    return runs
+    return runs, k13_batch
 
 
 def main() -> int:
@@ -2144,15 +2327,22 @@ def main() -> int:
     stats.update(phase_pe(rng, np.random.default_rng(args.seed + 2), work,
                           device, genome, rep_starts, seg_len, idx, idx_bw,
                           refs))
-    runs.update(phase_cli_pe(rng, work, device, base, genome, rep_starts,
-                             seg_len, gpu))
+    pe_runs, k13_batch = phase_cli_pe(rng, work, device, base, genome,
+                                      rep_starts, seg_len, gpu)
+    runs.update(pe_runs)
+    # K13's line: the CLI's first batch, the main path's shape; the 512
+    # pairs of phase pe beside it
+    k13 = stats["K13"]
+    k13["at_512_pairs"] = {k: k13[k] for k in K13_KEYS}
+    k13.update({k: k13_batch[k] for k in K13_KEYS},
+               policy="-1/-2 default, the CLI's first batch (round 1)")
     counter = {"K2": "exact_ranges", "K12": "exact_ranges_cat",
                "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
                "K9": "derive_b_jobs", "K10": "best_machine",
                "K10r": "best_record", "K11": "best_pack",
-               "K16": "sa_round"}
+               "K13": "pe_ilv", "K16": "sa_round"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
     for key, entry in stats.items():

@@ -8,7 +8,9 @@ walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
 derives; K10 and K11 (the best-first machine) under -v and seeded
 policies, dense and walk-left; K10r (its record mode, the paired
 recorder's fused fw-DAG + rc-DAG run) capped and uncapped, and at rec_cap
-1 on the lanes the recorder's phase 0 (K12) leaves; K16 (the
+1 on the lanes the recorder's phase 0 (K12) leaves; K13 (the V1
+interleave, chase and rescue of csrc/ilv.cu) on the recorder's streams,
+dense and walk-left, --fr and --ff; K16 (the
 prefix-doubling round of csrc/sa.cu) round for round, and the SA it builds
 against SA-IS; and the CLI on the card (-v 0/1/2/3, -n, --best, -M,
 --sanity, --stats, paired input with -p, and bowtie-build --jax-sa) must
@@ -336,10 +338,11 @@ def test_cli_on_card_matches_cpu(card, tmp_path, args):
     assert outs[0] == outs[1]
 
 
-def _pairs(refs, n, seed, tmp_path):
-    """Seeded --fr pairs of _reads' genome: fragments of 60-200 bases,
-    mates of 18-44 bases with 0-2 mismatches, every 6th pair with a random
-    mate; written as -1/-2 FASTQ files and read back."""
+def _pairs(refs, n, seed, tmp_path, ff=False):
+    """Seeded --fr pairs (with ff, --ff pairs) of _reads' genome:
+    fragments of 60-200 bases, mates of 18-44 bases with 0-2 mismatches,
+    every 6th pair with a random mate; written as -1/-2 FASTQ files and
+    read back."""
     from bowtie_tpu_torch.io.readers import PairedReadSource
     rng = np.random.default_rng(seed)
     f1, f2 = [], []
@@ -349,8 +352,9 @@ def _pairs(refs, n, seed, tmp_path):
         p = int(rng.integers(0, len(r) - frag + 1))
         l1, l2 = (int(x) for x in rng.integers(18, 45, 2))
         a = np.minimum(r[p:p + l1], 3).astype(np.uint8)
-        b = (3 - np.minimum(r[p + frag - l2:p + frag], 3)[::-1]).astype(
-            np.uint8)
+        b = np.minimum(r[p + frag - l2:p + frag], 3).astype(np.uint8)
+        if not ff:
+            b = (3 - b[::-1]).astype(np.uint8)
         if k % 6 == 5:
             b = rng.integers(0, 4, l2).astype(np.uint8)
         for q in (a, b):
@@ -420,6 +424,47 @@ def test_record_kernel_matches_plain(card, tmp_path, kw, cap, dense):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["best_record"] == 1
     assert kernels.LAUNCHES["best_machine"] == 0
+
+
+@pytest.mark.parametrize("kw,dense", [({}, True), ({}, False),
+                                      (dict(fw1=True, fw2=True), True)],
+                         ids=["fr_dense", "fr_offrate13", "ff_dense"])
+def test_ilv_kernel_matches_plain(card, tmp_path, kw, dense):
+    """K13 equals its plain version on the card on small_index (five
+    fragments), every output and each pair's iterations, on the streams
+    of both rounds: rec_cap 1 after phase 0, and uncapped."""
+    from bowtie_tpu_torch.align import pe_ilv_device as ilv
+    from bowtie_tpu_torch.align.pe_device import DevicePairedBestAligner
+    from bowtie_tpu_torch.align.policy import KPolicy
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idx, refs = card
+    idx_bw = read_ebwt(BASE + ".rev")
+    if not dense:
+        idx, idx_bw = (idx.with_off_rate(idx.off_rate + 8),
+                       idx_bw.with_off_rate(idx_bw.off_rate + 8))
+    al = DevicePairedBestAligner(idx, idx_bw, refs, KPolicy(),
+                                 compact=not dense, device="cuda", **kw)
+    assert al.use_ilv and al.pair.nfrag == 5
+    pairs, _m1, _m2 = _pairs(refs, 300, 29, tmp_path, ff=kw.get("fw2"))
+    idxs = list(range(len(pairs)))
+    s1 = fill_seed_caches([p[0] for p in pairs], 0)
+    found = 0
+    for cap in (1, None):
+        sts, ovd = al._record_all(al.plan(pairs), idxs, s1, cap)
+        items = [(i, sts[i]) for i in idxs if not ovd[i]]
+        S, st, lanes, host = al.ilv_inputs(pairs, items, s1)
+        assert lanes and not host
+        kernels.reset_launches()
+        out, iters = ilv.run_ilv(al.pair, st, S)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["pe_ilv"] == 1
+        pout, piters = ilv.run_ilv_plain(al.pair, {k: v.clone()
+                                                   for k, v in st.items()}, S)
+        for key in ilv.OUT_KEYS:
+            assert torch.equal(out[key], pout[key]), (cap, key)
+        assert torch.equal(iters, piters), cap
+        found += int(out["res_found"].sum())
+    assert found > 0
 
 
 @pytest.mark.parametrize("args", [[], ["-v", "2", "-a", "-m", "3", "-S"],
