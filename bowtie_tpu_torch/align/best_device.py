@@ -61,9 +61,19 @@ engine (align/pe_device.py): a found range is appended to the lane's hit
 pool in emission order (_record_range) instead of being chased, until the
 lane's driver is exhausted or `rec_cap` ranges are recorded; one run holds
 lanes of two driver DAGs through the per-lane config bases cfg0f/cfg0o
-(_cfgF/_cfgO, :854-866), which every config read goes through.  Left out,
-with the paired V2 machine (K14): the `paired` branch of _step_cadv and
-the per-outer qlen_o/seed_o registers, constants of a V1 run.
+(_cfgF/_cfgO, :854-866), which every config read goes through.
+
+Paired record mode (K14, `paired=True`), for the paired V2 engine
+(align/pev2_device.py): one lane per pair runs the merged DAG of both
+mates' drivers.  Each outer reads its own mate's length and seed
+(qlen_o, seed_o, :675-681; the record's length column, the seeded
+extender's dqlen and RNG seed, the chase's offset resolve), the strandFix
+scan looks for the other strand of the same mate (o_m1, :1666-1673), and
+the outer CostAware is done once either mate has no live outer (mate
+elimination, :1141-1159).  In every other run qlen_o and seed_o are the
+lane's qlen and seed and o_m1 is all ones, so those runs read what they
+read before.  The kernel's paired instantiation holds 16 outer and 48
+flat drivers per lane, the other one 8 and 24 (csrc/best.cu).
 """
 from __future__ import annotations
 
@@ -330,6 +340,10 @@ def cfg_arrays(flat: list[DriverCfg], outers: list[OuterCfg],
         o_chase_efw=np.array(
             [(oc.ext.ebwt_fw if oc.kind == "seeded" else
               oc.cfg.ebwt_fw) for oc in outers], np.int32),
+        # per-outer mate flag: all ones for a single read's DAG; the
+        # paired V2 machine (align/pev2_device.py) sets each merged
+        # outer's mate, which the strandFix scan and mate elimination read
+        o_m1=np.ones(len(outers), np.int32),
     )
     for oi, oc in enumerate(outers):
         if oc.kind == "seeded":
@@ -655,10 +669,11 @@ def _host_sort_actives(act, act_n, done, found, minc, rng, ca_min):
 #
 # The state is a dict of int64 tensors (overflow is bool), keyed and laid
 # out as the reference's state (bowtie_tpu/align/best_device.py:647
-# _init_state) less its paired-V2 registers (qlen_o, seed_o, which are
-# constants of every run here: the lane's qlen and seed): per-driver blocks are
-# flat element-major [B, W*K] (element e of block k at column e*K + k),
-# the pools [B, NBR, *], hits [B, H_MAX*HIT_W].  uint32 values (the RNG
+# _init_state), the per-outer read length and seed qlen_o/seed_o included
+# (the lane's qlen and seed unless the paired V2 machine gives them per
+# mate): per-driver blocks are flat element-major [B, W*K] (element e of
+# block k at column e*K + k), the pools [B, NBR, *], hits
+# [B, H_MAX*HIT_W].  uint32 values (the RNG
 # states, seeds) are held in int64.  Each _step_* below is the reference
 # sub-step of the same name in torch ops: one-hot masked writes over the
 # lanes in its mode, the same reads and the same RNG draws.
@@ -694,7 +709,10 @@ def init_state(B: int, L: int, nd: int, ndt: int, seeds: torch.Tensor,
                host: dict, maxbts: int, device) -> dict:
     """The machine's initial state (bowtie_tpu/align/best_device.py:647
     _init_state) on `device`: HostInit.build's arrays `host` (numpy, [B]
-    leading) and the per-read seeds (uint32 values)."""
+    leading) and the per-read seeds (uint32 values).  The paired V2
+    machine's host arrays also give qlen_o/seed_o [B, nd] and rng_rs
+    [B, ndt] (:660-681, :731); without them every outer reads the lane's
+    qlen and seed."""
     dev = torch.device(device)
 
     def z(*s):
@@ -705,6 +723,10 @@ def init_state(B: int, L: int, nd: int, ndt: int, seeds: torch.Tensor,
 
     sd = torch.as_tensor(np.asarray(seeds).astype(np.int64) & U32,
                          device=dev)
+    qlen_o = (h("qlen_o") if "qlen_o" in host
+              else h("qlen")[:, None].repeat(1, nd))
+    seed_o = (h("seed_o") & U32 if "seed_o" in host
+              else sd[:, None].repeat(1, nd))
     st = dict(
         mode=torch.full((B,), M_MAIN, dtype=torch.int64, device=dev),
         overflow=torch.zeros(B, dtype=torch.bool, device=dev),
@@ -714,11 +736,12 @@ def init_state(B: int, L: int, nd: int, ndt: int, seeds: torch.Tensor,
         cfg0f=h("cfg0f") if "cfg0f" in host else z(B),
         cfg0o=h("cfg0o") if "cfg0o" in host else z(B),
         rng_al=sd.clone(), rng_ca=h("rng_ca") & U32,
-        rng_rs=sd[:, None].repeat(1, ndt), seed=sd.clone(),
+        rng_rs=(h("rng_rs") & U32 if "rng_rs" in host
+                else sd[:, None].repeat(1, ndt)), seed=sd.clone(),
         count=z(B), best_stratum=torch.full((B,), 999, dtype=torch.int64,
                                             device=dev),
         nhits=z(B), hits=z(B, H_MAX * HIT_W),
-        qlen=h("qlen"), rows_qp=h("rows_qp"),
+        qlen=h("qlen"), qlen_o=qlen_o, seed_o=seed_o, rows_qp=h("rows_qp"),
         dqlen=h("dqlen"), dd5=h("dd5"), dd3=h("dd3"),
         qp_cur=z(B, 2 * L), d5_cur=z(B), d3_cur=z(B), qlen_cur=z(B),
         bt=torch.full((B,), maxbts, dtype=torch.int64, device=dev),
@@ -743,7 +766,7 @@ def init_state(B: int, L: int, nd: int, ndt: int, seeds: torch.Tensor,
         od_rr=z(B, nd * 5), od_ed=z(B, nd * E_MAX), od_ec=z(B, nd * E_MAX),
         ic_act=z(B, nd * PEX), ic_actn=z(B, nd), ic_found=z(B, nd),
         ic_done=z(B, nd), ic_min=z(B, nd),
-        ic_rng=sd[:, None].repeat(1, nd),
+        ic_rng=seed_o.clone(),
         il_top=z(B, nd), il_bot=z(B, nd), il_cost=z(B, nd),
         il_strat=z(B, nd), il_ne=z(B, nd),
         il_ed=z(B, nd * E_MAX), il_ec=z(B, nd * E_MAX),
@@ -848,9 +871,9 @@ class _Ctx:
 
     def __init__(self, pair, cfg, *, nd, ndt, L, nfrag, n_k, m_max, strata,
                  qual_lim, qual_order, bt_on, fc, has_seeded, record=False,
-                 rec_cap=None):
+                 rec_cap=None, paired=False):
         self.pair, self.cfg = pair, cfg
-        self.record, self.rec_cap = record, rec_cap
+        self.record, self.rec_cap, self.paired = record, rec_cap, paired
         self.nd, self.ndt, self.L, self.nfrag = nd, ndt, L, nfrag
         self.n_k, self.m_max, self.strata = n_k, m_max, strata
         self.qual_lim, self.qual_order, self.bt_on = (qual_lim, qual_order,
@@ -1036,7 +1059,8 @@ def _record_range(st, cx, m, found):
     ed_p = torch.cat([ed_p[:, :MM_SLOTS - 1], st["pre_min"][:, None]], 1)
     rec = torch.cat([torch.stack(
         [st["ls_drv"], st["ls_top"], st["ls_bot"], st["ls_cost"],
-         st["ls_strat"], nmms, done_col, st["qlen"]], -1),
+         st["ls_strat"], nmms, done_col, _sel(st["qlen_o"], st["ls_drv"])],
+        -1),
         ed_p, torch.cat([st["ls_ec"], zpad], 1)], -1)
     over = rec_on & ((st["nhits"] >= H_MAX) | (nmms > MM_SLOTS))
     st["overflow"] = st["overflow"] | over
@@ -1068,6 +1092,18 @@ def _step_cadv(st, cx):
     st["ls_ec"] = torch.where(dv[:, None], st["dl_ec"], st["ls_ec"])
     _w(st, "dl_valid", dv, 0)
     _w(st, "ca_found", dv, 1)
+    if cx.paired:
+        # mate elimination (:1141-1159): with no delayed range pending,
+        # the merged driver is done once either mate has no not-done
+        # outer left (pops remove only done-and-not-found entries, so
+        # every not-done outer is still active)
+        ii = _iota(cx.nd, m.device)
+        o_m1 = cx.cfg["o_m1"][st["cfg0o"][:, None] + ii] > 0
+        alive = st["od_done"] == 0
+        elim = m & ~dv & ~((alive & o_m1).any(1) & (alive & ~o_m1).any(1))
+        _w(st, "ca_done", elim, 1)
+        _w(st, "mode", elim, M_MAIN)
+        m = m & ~elim
     has_act = st["act_n"] > 0
     act0 = st["act"][:, 0]
     _w(st, "ca_min", dv & has_act,
@@ -1468,9 +1504,14 @@ def _step_cpost(st, cx):
     _w(st, "ca_found", pf, 1)
     _dw(st, "od_found", pf, cur_o, 0)
     r_fw = _cfgO(st, cx, "o_fw", cur_o)
+    r_m1 = _cfgO(st, cx, "o_m1", cur_o)
     ii = _iota(nd, m.device)
     cfg_fw_row = cx.cfg["o_fw"][st["cfg0o"][:, None] + ii]
+    cfg_m1_row = cx.cfg["o_m1"][st["cfg0o"][:, None] + ii]
+    # the first i >= 1 of the static outer order on the other strand of
+    # the same mate (:1666-1673; every outer is mate 1's but in V2)
     cand = ((ii >= 1) & (cfg_fw_row != r_fw[:, None])
+            & (cfg_m1_row == r_m1[:, None])
             & (ii < st["act_n"][:, None]))
     has_i = cand.any(1)
     i_star = cand.long().argmax(1)
@@ -1607,7 +1648,7 @@ def _step_sdgen(st, cx):
     _dw2(st, "pm_m", ok, flat_e, pm_m)
     _dw2(st, "pm_c", ok, flat_e, pm_c)
     _dw(st, "pm_n", ok, flat_e, sne)
-    qlen = st["qlen"]
+    qlen = _sel(st["qlen_o"], cur_o)
     s_seed = _sel(st["dd3"], gen)
     _dw(st, "dqlen", ok, flat_e, qlen)
     _dw(st, "dd3", ok, flat_e, s_seed)
@@ -1615,7 +1656,7 @@ def _step_sdgen(st, cx):
     iham = (scost & 0x3FFF) if cx.qual_order else torch.zeros_like(scost)
     _dw(st, "drv_nextid", ok, flat_e, 0)
     _dw(st, "pm_min", ok, flat_e, 0)
-    _dw(st, "rng_rs", ok, flat_e, st["seed"])
+    _dw(st, "rng_rs", ok, flat_e, _sel(st["seed_o"], cur_o))
 
     fl = torch.where(ok, flat_e, gen)
     qd_e, _pend = _derive_qd(st, fl, L)
@@ -1818,7 +1859,7 @@ def _step_chase(st, cx):
         st["r_walk"] = torch.where(m, torch.where(resolved, 0, 1),
                                    st["r_walk"])
         m = resolved
-    qlen = st["qlen"]
+    qlen = _sel(st["qlen_o"], st["ls_drv"])
     rs = pair.rstarts
     nfrag = cx.nfrag
     if nfrag == 1:
@@ -1931,7 +1972,8 @@ def run_machine_plain(pair, cfg: dict, st: dict, *, chunk: int,
     tables concatenated, each lane addressing its own through cfg0f/cfg0o)
     as int64 tensors on the state's device; kw: nd, ndt, L, nfrag, n_k,
     m_max, strata, qual_lim, qual_order, bt_on, fc, has_seeded, record,
-    rec_cap, as run_chunk takes them.
+    rec_cap, paired, as run_chunk takes them (paired: the merged-mate DAG
+    of the V2 recorder, with its mate elimination).
     -> (st, iterations).  If `work` is given (a dict), the rank work, walk
     steps and SA loads the run needs are added to its WORK_KEYS, and the
     distinct items it reads to the keys of TOUCHED, for bounds."""
@@ -1958,18 +2000,24 @@ def run_machine_plain(pair, cfg: dict, st: dict, *, chunk: int,
 
 OUT_KEYS = ("result", "overflow", "count", "best_stratum", "nhits", "hits",
             "mode")
-# csrc/best.cu's bounds on the config tables (outer, flat drivers): the
-# largest fused table, the -n 3 (and -v 3) fw-DAG + rc-DAG of the paired
-# recorder, is 2 x 4 outer and 2 x 12 flat drivers
+# csrc/best.cu's two instantiations of K10 and their bounds on a lane's
+# driver DAG (outer, flat drivers): single-end and V1 runs (the largest
+# fused table, the -n 3 and -v 3 fw-DAG + rc-DAG of the V1 recorder, is
+# 2 x 4 outer and 2 x 12 flat drivers), and the paired V2 machine, K14,
+# whose merged -n 3 DAG has 16 outer and 48 flat drivers.  BestArgs's
+# config tables hold the paired bounds.
 ND_MAX, NDT_MAX = 8, 24
+ND_MAX_PAIRED, NDT_MAX_PAIRED = 16, 48
 STEP_SUBSTEPS = 18               # sub-steps of one lockstep iteration
 CFG_F = ("ebwt_fw", "fw", "exacts", "hh")
-CFG_O = ("o_kind", "o_flat0", "o_exbase", "o_fw", "o_chase_efw")
+CFG_O = ("o_kind", "o_flat0", "o_exbase", "o_fw", "o_chase_efw", "o_m1")
 
 
-def init_layout(nd: int, ndt: int) -> list:
+def init_layout(nd: int, ndt: int, paired: bool = False) -> list:
     """(name, width) of the columns of pack_init's per-lane row, in
-    order; csrc/best.cu reads them at the same offsets."""
+    order; csrc/best.cu reads them at the same offsets.  A paired run's
+    row also holds each outer's read length and seed and each flat
+    driver's RNG seed (the mate it serves)."""
     return ([(k, NBR) for k in P_KEYS]
             + [(k, ndt) for k in ("drv_done", "drv_found", "drv_min",
                                   "drv_adj", "drv_nextid", "dqlen", "dd5",
@@ -1977,16 +2025,20 @@ def init_layout(nd: int, ndt: int) -> list:
             + [("rr", ndt * 5)]
             + [(k, nd) for k in ("od_done", "od_found", "od_min", "act")]
             + [(k, 1) for k in ("act_n", "rng_ca", "ca_min", "qlen", "cfg0f",
-                                "cfg0o")])
+                                "cfg0o")]
+            + ([("qlen_o", nd), ("seed_o", nd), ("rng_rs", ndt)]
+               if paired else []))
 
 
-def pack_init(host: dict, nd: int, ndt: int) -> np.ndarray:
+def pack_init(host: dict, nd: int, ndt: int,
+              paired: bool = False) -> np.ndarray:
     """HostInit.build's arrays as one int32 row per lane ([B, NI], uint32
     values as their bit patterns), laid out by init_layout; the config
     bases cfg0f/cfg0o are zero unless `host` gives them."""
     B = len(host["qlen"])
     cols = [np.asarray(host[k] if k in host else np.zeros(B))
-            .astype(np.int64).reshape(B, w) for k, w in init_layout(nd, ndt)]
+            .astype(np.int64).reshape(B, w)
+            for k, w in init_layout(nd, ndt, paired)]
     return np.ascontiguousarray(
         (np.concatenate(cols, 1) & U32).astype(np.uint32).view(np.int32))
 
@@ -1996,16 +2048,18 @@ _P = ctypes.c_void_p
 
 
 class BestArgs(ctypes.Structure):
-    """Mirror of `struct BestArgs` in csrc/best.cu (passed by pointer)."""
+    """Mirror of `struct BestArgs` in csrc/best.cu (passed by pointer to
+    the entry point, which passes it by value to the kernel)."""
     _fields_ = ([("fw", kernels.FMView), ("bw", kernels.FMView),
                  ("rstarts", _P), ("nfrag", _I), ("length", ctypes.c_uint32),
                  ("dense", _I), ("B", _I), ("L", _I), ("nd", _I),
                  ("ndt", _I), ("n_k", _I), ("m_max", _I), ("strata", _I),
                  ("qual_lim", _I), ("qual_order", _I), ("bt_on", _I),
                  ("has_seeded", _I), ("maxbts", _I), ("record", _I),
-                 ("rec_cap", _I), ("max_transitions", ctypes.c_int64)]
-                + [("cfg_" + k, _I * NDT_MAX) for k in CFG_F]
-                + [("cfg_" + k, _I * ND_MAX) for k in CFG_O]
+                 ("rec_cap", _I), ("paired", _I),
+                 ("max_transitions", ctypes.c_int64)]
+                + [("cfg_" + k, _I * NDT_MAX_PAIRED) for k in CFG_F]
+                + [("cfg_" + k, _I * ND_MAX_PAIRED) for k in CFG_O]
                 + [(k, _P) for k in ("init", "rows_qp", "seeds", "ptb",
                                      "meta", "result", "overflow", "count",
                                      "best_stratum", "nhits", "hits", "mode",
@@ -2016,13 +2070,18 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
                 L: int, nd: int, ndt: int, maxbts: int, n_k: int,
                 m_max: int, strata: bool, qual_lim: int, qual_order: bool,
                 bt_on: bool, has_seeded: bool, max_steps: int,
-                record: bool = False, rec_cap: int | None = None):
+                record: bool = False, rec_cap: int | None = None,
+                paired: bool = False):
     """K10: run every lane of the batch to M_DONE.  cfg: HostInit.cfg
     (numpy), or several DAGs' tables concatenated, which host's
     cfg0f/cfg0o columns address per lane; host: HostInit.build's arrays
     for these lanes (numpy); seeds: int64 [B] per-read seeds (uint32
     values) on the pair's device.  record/rec_cap: K10r, the record mode
     (module docstring), whose launches count under "best_record".
+    paired (with record): K14, the merged-mate DAG of the paired V2
+    recorder (align/pev2_device.py), host giving qlen_o/seed_o/rng_rs by
+    mate; it runs the kernel's paired instantiation (csrc/best.cu) and
+    its launches count under "best_pev2".
     -> (outputs by OUT_KEYS, int32/bool [B] and hits [B, H_MAX*HIT_W];
     overflow includes the lanes still running at the budget; the most
     iterations (plain) or transitions (kernel) any lane took).
@@ -2036,7 +2095,7 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
     kw = dict(nd=nd, ndt=ndt, L=L, nfrag=pair.nfrag, n_k=n_k, m_max=m_max,
               strata=strata, qual_lim=qual_lim, qual_order=qual_order,
               bt_on=bt_on, fc=pair.ftab_chars, has_seeded=has_seeded,
-              record=record, rec_cap=rec_cap)
+              record=record, rec_cap=rec_cap, paired=paired)
     if kernels.all_on_cpu(seeds, device=dev):
         st = init_state(B, L, nd, ndt, seeds.numpy(), host, maxbts, dev)
         cfg_t = {k: torch.from_numpy(np.asarray(v).astype(np.int64))
@@ -2056,12 +2115,14 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
     kernels.check(seeds, "seeds", torch.int64, 1, dev)
     kernels.check(pair.rstarts, "rstarts", torch.int64, 2, dev)
     nco, ncf = len(cfg["o_kind"]), len(cfg["ebwt_fw"])
-    if nco > ND_MAX or ncf > NDT_MAX:
+    lim_o, lim_f = ((ND_MAX_PAIRED, NDT_MAX_PAIRED) if paired
+                    else (ND_MAX, NDT_MAX))
+    if max(nco, nd) > lim_o or max(ncf, ndt) > lim_f:
         raise ValueError(f"{nco} outer / {ncf} flat driver configs exceed "
-                         f"the kernel's {ND_MAX} / {NDT_MAX}")
+                         f"the kernel's {lim_o} / {lim_f}")
     if host["rows_qp"].shape != (B, ndt, 2 * L):
         raise ValueError("host rows_qp and the batch disagree on shapes")
-    init = torch.from_numpy(pack_init(host, nd, ndt)).to(dev)
+    init = torch.from_numpy(pack_init(host, nd, ndt, paired)).to(dev)
     rows_qp = torch.from_numpy(np.ascontiguousarray(
         host["rows_qp"], dtype=np.int8)).to(dev)
     out = {k: torch.empty((B, H_MAX * HIT_W) if k == "hits" else (B,),
@@ -2077,7 +2138,7 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
             ndt=ndt, n_k=n_k, m_max=m_max, strata=int(strata),
             qual_lim=qual_lim, qual_order=int(qual_order), bt_on=int(bt_on),
             has_seeded=int(has_seeded), maxbts=maxbts, record=int(record),
-            rec_cap=-1 if rec_cap is None else rec_cap,
+            rec_cap=-1 if rec_cap is None else rec_cap, paired=int(paired),
             max_transitions=STEP_SUBSTEPS * max_steps,
             init=init.data_ptr(), rows_qp=rows_qp.data_ptr(),
             seeds=seeds.data_ptr(), ptb=ptb.data_ptr(),
@@ -2087,20 +2148,32 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
             getattr(a, "cfg_" + k)[:ncf] = [int(x) for x in cfg[k]]
         for k in CFG_O:
             getattr(a, "cfg_" + k)[:nco] = [int(x) for x in cfg[k]]
-        _check_layout(nd, ndt)
-        # K10r (record mode) counts apart from K10
-        kernels.launch("best_record" if record else "best_machine",
+        _check_layout(nd, ndt, paired)
+        # K10r (record mode) and K14 (paired record mode) count apart
+        # from K10
+        kernels.launch("best_pev2" if paired else
+                       "best_record" if record else "best_machine",
                        "bt_best_machine", ctypes.byref(a))
     steps = out.pop("steps")
     out["overflow"] = out["overflow"] != 0
     return out, (steps.max() if B else torch.tensor(0)).long()
 
 
-def _check_layout(nd: int, ndt: int) -> None:
+def machine_local_bytes() -> dict:
+    """The local memory per thread of csrc/best.cu's two instantiations of
+    K10 (cudaFuncGetAttributes), which the runtime reserves for every
+    resident thread: "single" (8 outer / 24 flat drivers: K10, K10r) and
+    "paired" (16 / 48: K14)."""
+    so = kernels.lib()
+    return {"single": so.bt_best_local_bytes(0),
+            "paired": so.bt_best_local_bytes(1)}
+
+
+def _check_layout(nd: int, ndt: int, paired: bool = False) -> None:
     """Raise unless csrc/best.cu reads pack_init's row at the width
     init_layout gives it."""
-    want = sum(w for _k, w in init_layout(nd, ndt))
-    if kernels.lib().bt_best_init_width(nd, ndt) != want:
+    want = sum(w for _k, w in init_layout(nd, ndt, paired))
+    if kernels.lib().bt_best_init_width(nd, ndt, int(paired)) != want:
         raise RuntimeError("csrc/best.cu and align/best_device.py disagree "
                            "on the init row")
 

@@ -10,8 +10,9 @@ best-first machine, align/best_device.py) with -k/-a/-m reporting on the
 CUDA kernels, with --sanity, --stats and -p for the host engines.  Paired
 input (-1/-2, --12, --interleaved) runs the V1 engine with its anchor
 streams recorded on the card (align/pe_device.py); --best and --pev2 run
-the V2 host engine, --nofw/--norc the V1 host engine
-(align/best_paired.py), as bin/bowtie-tpu does on a CPU backend.
+the V2 engine with its merged stream recorded on the card
+(align/pev2_device.py), --reportse the V2 host engine and --nofw/--norc
+the V1 host engine (align/best_paired.py).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from ..align.golden import GoldenFM
 from ..align.n_device import DeviceNAligner
 from ..align.parallel_host import ParallelHostAligner
 from ..align.pe_device import DevicePairedBestAligner
+from ..align.pev2_device import DevicePairedV2Aligner
 from ..align.pipeline import ExactAligner
 from ..align.policy import INF, AlignStats, KPolicy
 from ..index.arrays import from_ebwt
@@ -346,7 +348,8 @@ def _fallback_counter(aligner):
     if isinstance(aligner, DeviceDFSAligner):
         f0 = FALLBACKS["lanes"]
         return lambda: FALLBACKS["lanes"] - f0
-    if isinstance(aligner, (DeviceBestAligner, DevicePairedBestAligner)):
+    if isinstance(aligner, (DeviceBestAligner, DevicePairedBestAligner,
+                            DevicePairedV2Aligner)):
         return lambda: aligner.fallbacks
     return None
 
@@ -369,13 +372,14 @@ def build_aligner(args, idx, policy, dev, host_engine: bool = False):
 def _build_paired_aligner(args, idx, policy, dev, host_engine):
     """The paired aligner, chosen as bowtie_tpu/cli/align.py:333-420
     chooses it, with the recorded engine wherever that dispatch would take
-    it on an accelerator: --best or --pev2 run the V2 host engine
-    (make_paired_best_aligner_v2; the JAX package's V2 on its card, K14,
-    is not ported yet); otherwise, without --nofw/--norc and on fewer than
-    2^31 rows, the V1 engine with its anchor streams recorded on the card
-    (DevicePairedBestAligner); otherwise the V1 host engine
-    (make_paired_best_aligner).  With host_engine, the V1 host engine
-    stands in for the recorded one."""
+    it on an accelerator: --best or --pev2 run the V2 engine with its
+    merged stream recorded on the card (DevicePairedV2Aligner, K14), or
+    under --reportse or on 2^31 rows or more the V2 host engine
+    (make_paired_best_aligner_v2); otherwise, without --nofw/--norc and on
+    fewer than 2^31 rows, the V1 engine with its anchor streams recorded
+    on the card (DevicePairedBestAligner); otherwise the V1 host engine
+    (make_paired_best_aligner).  With host_engine, the host engine of the
+    same version stands in for the recorded one."""
     idx_bw = read_ebwt_cached(args.ebwt_base + ".rev")
     recs, packed = read_bitpair_reference(args.ebwt_base)
     refs = unpack_reference(recs, packed, plen=idx.plen)
@@ -394,6 +398,12 @@ def _build_paired_aligner(args, idx, policy, dev, host_engine):
     if args.best or args.pev2:
         # --reportse alone does not select V2: the reference then runs
         # V1, which ignores its SE sinks (aligner_0mm.h:309-321)
+        if not (host_engine or args.reportse) and idx.length < (1 << 31):
+            return DevicePairedV2Aligner(idx, idx_bw, refs, policy,
+                                         nofw=args.nofw, norc=args.norc,
+                                         best_sink=args.strata,
+                                         threads=args.threads, device=dev,
+                                         **kw)
         return make_paired_best_aligner_v2(
             GoldenFM(idx), GoldenFM(idx_bw), refs, policy, nofw=args.nofw,
             norc=args.norc, report_se=args.reportse,

@@ -11,7 +11,16 @@
 //                          with `record` set, K10r, the record mode of the
 //                          paired-end recorder (:1030-1120 _step_main,
 //                          _record_range; the per-lane config bases
-//                          cfg0f/cfg0o of :854-866 _cfgF/_cfgO)
+//                          cfg0f/cfg0o of :854-866 _cfgF/_cfgO); with
+//                          `paired` set as well, K14, the merged-mate
+//                          recorder of the paired V2 engine
+//                          (bowtie_tpu/align/pev2_device.py:54
+//                          PairedV2Machine, :157 record -> K10 with
+//                          record=True, paired=True: best_device.py
+//                          :1141-1159 mate elimination, :1666-1673 the
+//                          same-mate strandFix test, :675-681/:731
+//                          qlen_o/seed_o, read at :1102, :1845, :1856,
+//                          :2099)
 //   K11 bt_best_pack    <- best_device.py:2264 _harvest_small, :2270
 //                          _poll_all, :2311 _gather_rows (:2278
 //                          _harvest_poll, :2344 _merge_out)
@@ -47,13 +56,26 @@
 // and every read of them goes through the lane's bases cfg0f (flat) and
 // cfg0o (outer), zero outside record runs.
 //
+// Paired record mode (K14): one thread per pair runs the merged DAG of
+// both mates' drivers, the scalar form of the plain paired sub-steps.
+// Each outer reads its own mate's read length and seed (qlen_o, seed_o:
+// the record's length column, a seeded extender's length and RNG seed,
+// the chase's offset resolve), the strandFix scan takes the other strand
+// of the same mate (o_m1), and the outer CostAware is done once either
+// mate has no live outer (mate elimination).  The kernel and the lane
+// state are templated on their bounds: StSingle (8 outer, 24 flat
+// drivers) for single-end and V1 runs, StPaired (16, 48: the merged -n 3
+// DAG) for K14, so that the other runs keep their per-thread stack.  The
+// launch picks the instantiation by the run's `paired` flag.
+//
 // Rows are int32 here, as in the JAX machine, which compares them signed:
 // the aligner refuses indexes of 2^31 rows or more.  The sentinels
 // COST_INF = 0xFFFF and META_ALL_DEAD are the JAX ones.
 //
 // State: the ~60 lane scalars and the branch-pool scalars, per-driver
-// blocks and inner CostAware lists (fixed sizes, ND_MAX outer and NDT_MAX
-// flat drivers) in one per-thread struct (registers and local memory);
+// blocks and inner CostAware lists (fixed sizes, St's ND_MAX outer and
+// NDT_MAX flat drivers) in one per-thread struct (registers and local
+// memory, whose size per instantiation PERF.md gives);
 // the per-position pools, ptb [NBR][2L] (each consumed position's entry
 // top | bot) and meta [NBR][L] (elimination bits, quallo, the fchr flag),
 // in a per-lane global scratch; the hit records straight in the output.
@@ -72,7 +94,8 @@ namespace {
 
 constexpr int NBR = 16, E_MAX = 6, H_MAX = 16, MM_SLOTS = 8, PEX = 4;
 constexpr int HIT_W = 8 + 2 * MM_SLOTS;
-constexpr int ND_MAX = 8, NDT_MAX = 24;
+// the config tables' bounds: the paired machine's merged -n 3 DAG
+constexpr int ND_CFG = 16, NDT_CFG = 48;
 constexpr int32_t INF32 = 0x7FFFFFFF;
 constexpr int32_t COST_INF = 0xFFFF;
 constexpr int32_t META_ELIM = 1 << 4;
@@ -100,13 +123,14 @@ struct BestArgs {
     int32_t n_k, m_max, strata, qual_lim, qual_order, bt_on, has_seeded,
         maxbts;
     int32_t record, rec_cap;    // K10r; rec_cap < 0: no cap
+    int32_t paired;             // K14: the merged-mate DAG (with record)
     int64_t max_transitions;
     // driver configs (HostInit.cfg, or the fused tables of a record run,
     // read through the lane's cfg0f/cfg0o): per flat, per outer driver
-    int32_t cfg_ebwt_fw[NDT_MAX], cfg_fw[NDT_MAX], cfg_exacts[NDT_MAX],
-        cfg_hh[NDT_MAX];
-    int32_t cfg_o_kind[ND_MAX], cfg_o_flat0[ND_MAX], cfg_o_exbase[ND_MAX],
-        cfg_o_fw[ND_MAX], cfg_o_chase_efw[ND_MAX];
+    int32_t cfg_ebwt_fw[NDT_CFG], cfg_fw[NDT_CFG], cfg_exacts[NDT_CFG],
+        cfg_hh[NDT_CFG];
+    int32_t cfg_o_kind[ND_CFG], cfg_o_flat0[ND_CFG], cfg_o_exbase[ND_CFG],
+        cfg_o_fw[ND_CFG], cfg_o_chase_efw[ND_CFG], cfg_o_m1[ND_CFG];
     const int32_t* init;        // [B][NI] pack_init's rows
     const int8_t* rows_qp;      // [B][ndt][2L] by-depth codes | penalties
     const int64_t* seeds;       // [B] uint32 values
@@ -115,14 +139,31 @@ struct BestArgs {
     int32_t *result, *overflow, *count, *best_stratum, *nhits, *hits, *mode,
         *steps;
 };
+// passed by value: within the classic 4 KB kernel-parameter limit
+static_assert(sizeof(BestArgs) <= 4096, "BestArgs exceeds 4 KB");
 
 namespace {
 
 constexpr int kThreads = 64;
 
-// one lane's state (best_device.py:647 _init_state, less the paired-V2
-// registers qlen_o and seed_o, which are the lane's qlen and seed here)
-struct St {
+// the per-outer read length and seed, held only by the paired lane state
+// (elsewhere they are the lane's qlen and seed: qlen_of, seed_of); the
+// empty base adds no bytes
+template <int ND, bool PAIRED>
+struct MateRegs {};
+
+template <int ND>
+struct MateRegs<ND, true> {
+    int32_t qlen_o[ND];
+    uint32_t seed_o[ND];
+};
+
+// one lane's state (best_device.py:647 _init_state) for at most ND_ outer
+// and NDT_ flat drivers
+template <int ND_, int NDT_, bool PAIRED_>
+struct St : MateRegs<ND_, PAIRED_> {
+    static constexpr int ND_MAX = ND_, NDT_MAX = NDT_;
+    static constexpr bool PAIRED = PAIRED_;
     int32_t mode, result, count, best_stratum, nhits, qlen;
     int32_t cfg0f, cfg0o, pre_min;
     bool overflow;
@@ -159,6 +200,8 @@ struct St {
         il_strat[ND_MAX], il_ne[ND_MAX];
     int32_t il_ed[ND_MAX][E_MAX], il_ec[ND_MAX][E_MAX];
 };
+using StSingle = St<8, 24, false>;
+using StPaired = St<ND_CFG, NDT_CFG, true>;
 
 // per-thread view of the arguments
 struct Ctx {
@@ -174,14 +217,29 @@ __device__ __forceinline__ const BtFM& index_of(const Ctx& x, int32_t efw) {
     return efw > 0 ? x.a.fw : x.a.bw;
 }
 
+// the read length and RNG seed of outer driver o's mate
+template <class S>
+__device__ __forceinline__ int32_t qlen_of(const S& s, int32_t o) {
+    if constexpr (S::PAIRED) return s.qlen_o[o];
+    else return s.qlen;
+}
+
+template <class S>
+__device__ __forceinline__ uint32_t seed_of(const S& s, int32_t o) {
+    if constexpr (S::PAIRED) return s.seed_o[o];
+    else return s.seed;
+}
+
 // config of flat driver f / outer driver o of the lane's own DAG
 // (_cfgF / _cfgO, :854-866)
-__device__ __forceinline__ int32_t cfgF(const int32_t* table, const St& s,
+template <class S>
+__device__ __forceinline__ int32_t cfgF(const int32_t* table, const S& s,
                                         int32_t f) {
     return table[s.cfg0f + f];
 }
 
-__device__ __forceinline__ int32_t cfgO(const int32_t* table, const St& s,
+template <class S>
+__device__ __forceinline__ int32_t cfgO(const int32_t* table, const S& s,
                                         int32_t o) {
     return table[s.cfg0o + o];
 }
@@ -193,7 +251,8 @@ __device__ __forceinline__ int32_t clampi(int32_t v, int32_t lo,
 
 // the by-depth code of flat driver f at depth d: its static row with its
 // seed-stage premuts applied (_derive_qd, :891)
-__device__ __forceinline__ int32_t qd_at(const St& s, const Ctx& x, int f,
+template <class S>
+__device__ __forceinline__ int32_t qd_at(const S& s, const Ctx& x, int f,
                                          int d) {
     int32_t c = x.rows[(size_t)f * 2 * x.L + d];
     for (int k = 0; k < 3; ++k)
@@ -206,7 +265,8 @@ __device__ __forceinline__ int32_t pend_at(const Ctx& x, int f, int d) {
 }
 
 // NBestFirstStrat::irrelevantCost (hit.h:1124-1131)
-__device__ __forceinline__ bool irrelevant(const St& s, const Ctx& x,
+template <class S>
+__device__ __forceinline__ bool irrelevant(const S& s, const Ctx& x,
                                            int32_t cost) {
     return x.a.strata && s.count > 0 && (cost >> 14) > s.best_stratum;
 }
@@ -227,7 +287,8 @@ __device__ __forceinline__ void quartets(const Ctx& x, int32_t efw,
 // PathManager front (_front_select, :876): the eligible slot of driver
 // cur with the least CostCompare key, the least id among equal keys, the
 // first slot among equal ids; slot 0 when none is eligible.
-__device__ int front_select(const St& s, int32_t cur, bool& nonempty) {
+template <class S>
+__device__ int front_select(const S& s, int32_t cur, bool& nonempty) {
     int32_t k1min = INF32;
     nonempty = false;
     for (int j = 0; j < NBR; ++j) {
@@ -256,14 +317,16 @@ __device__ int front_select(const St& s, int32_t cur, bool& nonempty) {
     return fs;
 }
 
-__device__ __forceinline__ bool drv_has_branch(const St& s, int32_t cur) {
+template <class S>
+__device__ __forceinline__ bool drv_has_branch(const S& s, int32_t cur) {
     for (int j = 0; j < NBR; ++j)
         if (s.p_valid[j] > 0 && s.p_drv[j] == cur) return true;
     return false;
 }
 
 // the first free pool slot (slot 0 when the pool is full)
-__device__ __forceinline__ int free_slot(const St& s) {
+template <class S>
+__device__ __forceinline__ int free_slot(const S& s) {
     for (int j = 0; j < NBR; ++j)
         if (s.p_valid[j] == 0) return j;
     return 0;
@@ -271,7 +334,8 @@ __device__ __forceinline__ int free_slot(const St& s) {
 
 // the curtail/split cost of position ii of a branch (_meta_costs,
 // :1228): COST_INF where the position is not eligible
-__device__ __forceinline__ int32_t meta_cost(const St& s, const Ctx& x,
+template <class S>
+__device__ __forceinline__ int32_t meta_cost(const S& s, const Ctx& x,
                                              int32_t meta, int ii,
                                              int32_t frd, int32_t flen,
                                              int32_t fd0, int32_t d3) {
@@ -322,13 +386,15 @@ __device__ void sort_generic(int32_t* act, int32_t& act_n,
     }
 }
 
-__device__ __forceinline__ void load_cur_rows(St& s, int32_t f) {
+template <class S>
+__device__ __forceinline__ void load_cur_rows(S& s, int32_t f) {
     s.d5_cur = s.dd5[f];
     s.d3_cur = s.dd3[f];
     s.qlen_cur = s.dqlen[f];
 }
 
-__device__ void copy_outer_range(St& s, bool to_ls, int32_t o) {
+template <class S>
+__device__ void copy_outer_range(S& s, bool to_ls, int32_t o) {
     if (to_ls) {
         s.ls_drv = o; s.ls_top = s.od_rr[o][0]; s.ls_bot = s.od_rr[o][1];
         s.ls_cost = s.od_rr[o][2]; s.ls_strat = s.od_rr[o][3];
@@ -361,7 +427,8 @@ __device__ __forceinline__ void swap_(T& a, T& b) {
 // record [drv, top, bot, cost, stratum, nedits, done, qlen, edit depths
 // (slot MM_SLOTS-1: pre_min), edit chars]; done is 2 on the record that
 // reaches rec_cap with the driver not exhausted.  No chase, no draw.
-__device__ void record_range(St& s, const Ctx& x) {
+template <class S>
+__device__ void record_range(S& s, const Ctx& x) {
     const BestArgs& a = x.a;
     if (s.ca_found > 0) {
         const int32_t nmms = s.ls_ne;
@@ -375,7 +442,8 @@ __device__ void record_range(St& s, const Ctx& x) {
             done = 2;
         int32_t* h = x.hits + (size_t)s.nhits * HIT_W;
         h[0] = s.ls_drv; h[1] = s.ls_top; h[2] = s.ls_bot; h[3] = s.ls_cost;
-        h[4] = s.ls_strat; h[5] = nmms; h[6] = done; h[7] = s.qlen;
+        h[4] = s.ls_strat; h[5] = nmms; h[6] = done;
+        h[7] = qlen_of(s, s.ls_drv);
         for (int k = 0; k < MM_SLOTS; ++k) {
             h[8 + k] = k < E_MAX ? s.ls_ed[k] : 0;
             h[8 + MM_SLOTS + k] = k < E_MAX ? s.ls_ec[k] : 0;
@@ -391,7 +459,8 @@ __device__ void record_range(St& s, const Ctx& x) {
 }
 
 // _step_main (:1030)
-__device__ void step_main(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_main(S& s, const Ctx& x) {
     if (x.a.record) {
         record_range(s, x);
         return;
@@ -412,8 +481,9 @@ __device__ void step_main(St& s, const Ctx& x) {
     s.mode = (s.ca_done > 0 || irrelevant(s, x, s.ca_min)) ? M_DONE : M_CADV;
 }
 
-// _step_cadv (:1127)
-__device__ void step_cadv(St& s) {
+// _step_cadv (:1127), with K14's mate elimination
+template <class S>
+__device__ void step_cadv(S& s, const Ctx& x) {
     const bool has_act = s.act_n > 0;
     const int32_t act0 = s.act[0];
     if (s.dl_valid > 0) {
@@ -430,6 +500,21 @@ __device__ void step_cadv(St& s) {
         s.mode = M_MAIN;
         return;
     }
+    if constexpr (S::PAIRED) {
+        // (:1141-1159) with no delayed range pending, the merged driver
+        // is done once either mate has no not-done outer left
+        bool alive1 = false, alive2 = false;
+        for (int o = 0; o < x.a.nd; ++o)
+            if (s.od_done[o] == 0) {
+                if (cfgO(x.a.cfg_o_m1, s, o) > 0) alive1 = true;
+                else alive2 = true;
+            }
+        if (!(alive1 && alive2)) {
+            s.ca_done = 1;
+            s.mode = M_MAIN;
+            return;
+        }
+    }
     if (!has_act) {
         s.ca_done = 1;
         s.mode = M_MAIN;
@@ -442,7 +527,8 @@ __device__ void step_cadv(St& s) {
 }
 
 // _step_oadv (:1180)
-__device__ void step_oadv(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_oadv(S& s, const Ctx& x) {
     const int32_t kind = x.a.has_seeded ? cfgO(x.a.cfg_o_kind, s, s.cur_o)
                                         : 0;
     if (kind == 0) {
@@ -456,13 +542,15 @@ __device__ void step_oadv(St& s, const Ctx& x) {
 }
 
 // _step_sfx (:1203)
-__device__ void step_sfx(St& s) {
+template <class S>
+__device__ void step_sfx(S& s) {
     const int32_t o = s.cur_o;
     s.mode = (s.od_done[o] > 0 || s.od_found[o] > 0) ? M_SFXEND : M_OADV;
 }
 
 // _step_dadv (:1214)
-__device__ void step_dadv(St& s) {
+template <class S>
+__device__ void step_dadv(S& s) {
     const int32_t cur = s.cur;
     const bool dd = s.drv_done[cur] > 0 || !drv_has_branch(s, cur);
     if (dd) s.drv_done[cur] = 1;
@@ -471,7 +559,8 @@ __device__ void step_dadv(St& s) {
 }
 
 // _step_ext (:1263): consume one position of the front branch
-__device__ void step_ext(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_ext(S& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int L = x.L;
     const int32_t cur = s.cur;
@@ -605,7 +694,8 @@ __device__ void step_ext(St& s, const Ctx& x) {
 
 // _step_spp (:1409): splitAndPrep, the shared --maxbts ceiling,
 // splitBranch/pick_edit and the loop exit checks
-__device__ void step_spp(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_spp(S& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int L = x.L;
     const int32_t cur = s.cur;
@@ -768,7 +858,8 @@ __device__ void step_spp(St& s, const Ctx& x) {
 }
 
 // _step_dend (:1602)
-__device__ void step_dend(St& s) {
+template <class S>
+__device__ void step_dend(S& s) {
     const int32_t cur = s.cur;
     s.drv_done[cur] = drv_has_branch(s, cur) ? 0 : 1;
     const int32_t pmc = s.pm_min[cur];
@@ -780,7 +871,8 @@ __device__ void step_dend(St& s) {
 }
 
 // _step_odend (:1624)
-__device__ void step_odend(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_odend(S& s, const Ctx& x) {
     const int32_t o = s.cur_o;
     const int32_t f0 = cfgO(x.a.cfg_o_flat0, s, o);
     if (cfgO(x.a.cfg_o_kind, s, o) == 0) {
@@ -801,7 +893,8 @@ __device__ void step_odend(St& s, const Ctx& x) {
 }
 
 // _step_cpost (:1652): consume a found range incl. the strandFix scan
-__device__ void step_cpost(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_cpost(S& s, const Ctx& x) {
     const int32_t o = s.cur_o;
     const bool pf = s.od_found[o] > 0;
     const bool needs0 = s.od_done[o] > 0 || s.precost != s.od_min[o];
@@ -811,9 +904,12 @@ __device__ void step_cpost(St& s, const Ctx& x) {
         s.od_found[o] = 0;
     }
     const int32_t r_fw = cfgO(x.a.cfg_o_fw, s, o);
+    // K14: the other strand of the same mate (:1666-1673)
+    const int32_t r_m1 = S::PAIRED ? cfgO(x.a.cfg_o_m1, s, o) : 1;
     int i_star = -1;
     for (int i = 1; i < x.a.nd; ++i)
-        if (cfgO(x.a.cfg_o_fw, s, i) != r_fw && i < s.act_n) {
+        if (cfgO(x.a.cfg_o_fw, s, i) != r_fw && i < s.act_n
+            && (!S::PAIRED || cfgO(x.a.cfg_o_m1, s, i) == r_m1)) {
             i_star = i;
             break;
         }
@@ -834,7 +930,8 @@ __device__ void step_cpost(St& s, const Ctx& x) {
 
 // _step_sfxend (:1695): the opposite-strand range as delayed, with the
 // spread-weighted swap draw
-__device__ void step_sfxend(St& s) {
+template <class S>
+__device__ void step_sfxend(S& s) {
     const int32_t o = s.cur_o;
     if (s.od_found[o] > 0) {
         copy_outer_range(s, false, o);
@@ -858,7 +955,8 @@ __device__ void step_sfxend(St& s) {
 }
 
 // _step_sort (:1725)
-__device__ void step_sort(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_sort(S& s, const Ctx& x) {
     sort_generic(s.act, s.act_n, s.od_done, s.od_found, s.od_min, s.rng_ca,
                  x.a.nd);
     if (s.act_n > 0 && s.dl_valid == 0)
@@ -870,7 +968,8 @@ __device__ void step_sort(St& s, const Ctx& x) {
 // ---- seeded-driver scheduler (EbwtSeededRangeSourceDriver) -----------------
 
 // _step_sd (:1750)
-__device__ void step_sd(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_sd(S& s, const Ctx& x) {
     const int32_t o = s.cur_o;
     const int32_t gen = cfgO(x.a.cfg_o_flat0, s, o);
     const bool gdone = s.drv_done[gen] > 0, gfound = s.drv_found[gen] > 0;
@@ -914,7 +1013,8 @@ __device__ void step_sd(St& s, const Ctx& x) {
 // _step_sdgen (:1802): on a seed partial, create a full extender (its
 // set_query: premuts, N tally, ftab jump, first branch) and add it to the
 // inner CostAware; then the generator min-cost propagation
-__device__ void step_sdgen(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_sdgen(S& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int L = x.L;
     const int32_t o = s.cur_o;
@@ -947,7 +1047,7 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
             s.pm_c[fe][k] = pm_c[k];
         }
         s.pm_n[fe] = sne;
-        const int32_t qlen = s.qlen;
+        const int32_t qlen = qlen_of(s, o);
         const int32_t s_seed = s.dd3[gen];
         s.dqlen[fe] = qlen;
         s.dd3[fe] = s_seed;
@@ -955,7 +1055,7 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
         const int32_t iham = a.qual_order ? (scost & 0x3FFF) : 0;
         s.drv_nextid[fe] = 0;
         s.pm_min[fe] = 0;
-        s.rng_rs[fe] = s.seed;
+        s.rng_rs[fe] = seed_of(s, o);
         const int32_t efw_e = cfgF(a.cfg_ebwt_fw, s, fe);
         const BtFM& fm = index_of(x, efw_e);
         const int fc = fm.ftab_chars;
@@ -1031,7 +1131,8 @@ __device__ void step_sdgen(St& s, const Ctx& x) {
 }
 
 // _step_sdfull (:1966)
-__device__ void step_sdfull(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_sdfull(S& s, const Ctx& x) {
     const int32_t o = s.cur_o;
     const int32_t gen = cfgO(x.a.cfg_o_flat0, s, o);
     if (s.ic_found[o] > 0) {
@@ -1051,7 +1152,8 @@ __device__ void step_sdfull(St& s, const Ctx& x) {
 }
 
 // _step_icadv (:1992)
-__device__ void step_icadv(St& s) {
+template <class S>
+__device__ void step_icadv(S& s) {
     const int32_t o = s.cur_o;
     if (s.ic_actn[o] == 0) {
         s.ic_done[o] = 1;
@@ -1071,7 +1173,8 @@ __device__ void step_icadv(St& s) {
 }
 
 // _step_icpost (:2013)
-__device__ void step_icpost(St& s) {
+template <class S>
+__device__ void step_icpost(S& s) {
     const int32_t o = s.cur_o;
     const int32_t p = s.cur;
     if (s.drv_found[p] > 0) {
@@ -1098,7 +1201,8 @@ __device__ void step_icpost(St& s) {
 
 // _step_chase (:2056): one RangeChaser row, resolve + joinedToTextOff +
 // sink (range_chaser.h:22; BestSink.report_hit)
-__device__ void step_chase(St& s, const Ctx& x) {
+template <class S>
+__device__ void step_chase(S& s, const Ctx& x) {
     const BestArgs& a = x.a;
     const int32_t efw = cfgO(a.cfg_o_chase_efw, s, s.ls_drv);
     const BtFM& fm = index_of(x, efw);
@@ -1129,7 +1233,7 @@ __device__ void step_chase(St& s, const Ctx& x) {
                        + jumps;
     }
     // joinedToTextOff (ebwt.h:2569-2629)
-    const int32_t qlen = s.qlen;
+    const int32_t qlen = qlen_of(s, s.ls_drv);
     int32_t start = 0, upper = (int32_t)a.length, tidx = 0, toff0 = 0;
     if (a.nfrag != 1) {
         int lo = 0, hi = a.nfrag;
@@ -1199,12 +1303,14 @@ __device__ void step_chase(St& s, const Ctx& x) {
 }
 
 // The lane's state from pack_init's row (init_layout's order) and the
-// constants of _init_state (:647).
-__device__ void init_lane(St& s, const Ctx& x, const int32_t* r,
+// constants of _init_state (:647); a paired row ends with the per-outer
+// read lengths and seeds and the per-flat-driver RNG seeds (:660-681).
+template <class S>
+__device__ void init_lane(S& s, const Ctx& x, const int32_t* r,
                           uint32_t seed) {
     const BestArgs& a = x.a;
     const int nd = a.nd, ndt = a.ndt;
-    s = St{};
+    s = S{};
     int32_t* pv[17] = {s.p_valid, s.p_drv, s.p_cost, s.p_ham, s.p_rdepth,
                        s.p_len, s.p_top, s.p_bot, s.p_curt, s.p_dly,
                        s.p_dlyf, s.p_id, s.p_ne, s.p_d0, s.p_d1, s.p_d2,
@@ -1228,12 +1334,25 @@ __device__ void init_lane(St& s, const Ctx& x, const int32_t* r,
     s.cfg0o = *r++;
     s.mode = M_MAIN;
     s.rng_al = s.seed = seed;
-    for (int f = 0; f < NDT_MAX; ++f) s.rng_rs[f] = seed;
-    for (int o = 0; o < ND_MAX; ++o) s.ic_rng[o] = seed;
+    for (int f = 0; f < S::NDT_MAX; ++f) s.rng_rs[f] = seed;
+    for (int o = 0; o < S::ND_MAX; ++o) s.ic_rng[o] = seed;
+    if constexpr (S::PAIRED) {
+        for (int o = 0; o < nd; ++o) s.qlen_o[o] = *r++;
+        for (int o = 0; o < nd; ++o) s.ic_rng[o] = s.seed_o[o] =
+            (uint32_t)*r++;
+        for (int f = 0; f < ndt; ++f) s.rng_rs[f] = (uint32_t)*r++;
+    }
     s.best_stratum = 999;
     s.bt = a.maxbts;
 }
 
+// the width of pack_init's per-lane row
+__host__ __device__ __forceinline__ int init_width(int nd, int ndt,
+                                                   bool paired) {
+    return 17 * NBR + 13 * ndt + 4 * nd + 6 + (paired ? 2 * nd + ndt : 0);
+}
+
+template <class S>
 __global__ void __launch_bounds__(kThreads)
 best_machine_kernel(const BestArgs a) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1243,17 +1362,17 @@ best_machine_kernel(const BestArgs a) {
                 a.ptb + (size_t)b * NBR * 2 * L,
                 a.meta + (size_t)b * NBR * L,
                 a.hits + (size_t)b * H_MAX * HIT_W};
-    const int ni = 17 * NBR + 13 * a.ndt + 4 * a.nd + 6;
+    const int ni = init_width(a.nd, a.ndt, S::PAIRED);
     for (int k = 0; k < NBR * 2 * L; ++k) x.ptb[k] = 0;
     for (int k = 0; k < NBR * L; ++k) x.meta[k] = META_ALL_DEAD;
     for (int k = 0; k < H_MAX * HIT_W; ++k) x.hits[k] = 0;
-    St s;
+    S s;
     init_lane(s, x, a.init + (size_t)b * ni, (uint32_t)a.seeds[b]);
     int64_t t = 0;
     for (; s.mode != M_DONE && !s.overflow && t < a.max_transitions; ++t) {
         switch (s.mode) {
             case M_MAIN: step_main(s, x); break;
-            case M_CADV: step_cadv(s); break;
+            case M_CADV: step_cadv(s, x); break;
             case M_SFX: step_sfx(s); break;
             case M_SD: step_sd(s, x); break;
             case M_ICADV: step_icadv(s); break;
@@ -1317,9 +1436,20 @@ best_pack_kernel(const int32_t* __restrict__ result,
 
 extern "C" {
 
+// the instantiation by the run: the paired one for K14
 int bt_best_machine(const BestArgs* a, void* stream) {
-    best_machine_kernel<<<(a->B + kThreads - 1) / kThreads, kThreads, 0,
-                          (cudaStream_t)stream>>>(*a);
+    const unsigned grid = (a->B + kThreads - 1) / kThreads;
+    if (a->paired) {
+        if (a->nd > StPaired::ND_MAX || a->ndt > StPaired::NDT_MAX)
+            return (int)cudaErrorInvalidValue;
+        best_machine_kernel<StPaired><<<grid, kThreads, 0,
+                                        (cudaStream_t)stream>>>(*a);
+    } else {
+        if (a->nd > StSingle::ND_MAX || a->ndt > StSingle::NDT_MAX)
+            return (int)cudaErrorInvalidValue;
+        best_machine_kernel<StSingle><<<grid, kThreads, 0,
+                                        (cudaStream_t)stream>>>(*a);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -1338,8 +1468,19 @@ int bt_best_pack(const void* result, const void* overflow, const void* count,
 }
 
 // the width of pack_init's per-lane row for nd outer / ndt flat drivers
-int bt_best_init_width(int nd, int ndt) {
-    return 17 * NBR + 13 * ndt + 4 * nd + 6;
+int bt_best_init_width(int nd, int ndt, int paired) {
+    return init_width(nd, ndt, paired != 0);
+}
+
+// the local memory (the lane state's stack) per thread of an
+// instantiation, which the runtime reserves for every resident thread;
+// -1 on an error
+int bt_best_local_bytes(int paired) {
+    cudaFuncAttributes at;
+    const cudaError_t e = paired
+        ? cudaFuncGetAttributes(&at, best_machine_kernel<StPaired>)
+        : cudaFuncGetAttributes(&at, best_machine_kernel<StSingle>);
+    return e == cudaSuccess ? (int)at.localSizeBytes : -1;
 }
 
 }  // extern "C"

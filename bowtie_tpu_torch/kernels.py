@@ -31,7 +31,8 @@ LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
             "resolve_rows_walk": 0, "resolve_rows_sa": 0, "one_row": 0,
             "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
-            "best_machine": 0, "best_record": 0, "best_pack": 0,
+            "best_machine": 0, "best_record": 0, "best_pev2": 0,
+            "best_pack": 0,
             "sa_round": 0, "pe_ilv": 0}
 
 _lock = threading.Lock()
@@ -153,8 +154,10 @@ _SIGNATURES = {
     # (result, overflow, count, best_stratum, nhits, hits, hoff, B, out,
     #  stream)
     "bt_best_pack": [_P] * 7 + [ctypes.c_int, _P, _P],
-    # (nd, ndt) -> the width of the machine's per-lane init row
-    "bt_best_init_width": [ctypes.c_int, ctypes.c_int],
+    # (nd, ndt, paired) -> the width of the machine's per-lane init row
+    "bt_best_init_width": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    # (paired) -> the machine instantiation's local bytes per thread
+    "bt_best_local_bytes": [ctypes.c_int],
     # (r, n1, k, big, nr, order, maxg, scratch, stream)
     "bt_sa_round": [_P] + [ctypes.c_int] * 3 + [_P] * 4 + [_P],
     # (args, stream); IlvArgs is align/pe_ilv_device.py's

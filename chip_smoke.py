@@ -136,7 +136,21 @@ Phases, each printing one JSON line:
              pairs of the in-repo small_index (five fragments: the
              fragment search of joinedToTextOff; small_pairs, from the
              K12 generator).
-13. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
+13. pev2   - K14, the best-first machine in paired record mode (the V2
+             recorder's merged-mate DAG, csrc/best.cu's paired
+             instantiation), held exactly to its plain version on the card
+             (hits, nhits, mode, result, count; overflow flags) on every
+             lane the plain version finished within its budget, and K11
+             on its records: -n 2 --best (12 outer / 28 flat drivers,
+             rec_cap 8) on 2,048 pe_pairs (their own generator, seed + 3;
+             timed: K14 median of 20, the plain version one run that also
+             counts the work its bound prices), -n 3 --best (16 / 48,
+             uncapped) and -n 2 --best on the offRate-13 pair on 256
+             pairs.  These two are the budget case: the plain version
+             stops at 600 iterations, and every pair past it that K14
+             finished replays its stream to the result of the V2 host
+             engine.
+14. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
              default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
              --fr -X 250; phase 0 on K12, K10r at rec_cap 1, then K13) and -v 2
              -a -m 1 -S, each run twice and the second counted from zero
@@ -154,10 +168,25 @@ Phases, each printing one JSON line:
              streams of the CLI's first batch (8,192 pairs, the default
              command's aligner), timed as in pe: the numbers of K13's
              line in the kernels line, the 512 pairs of pe beside them.
+             Then --best (-n 2 -k 1 --best --fr -X 250: the V2 engine,
+             K14 and K11) on the 20,000 pairs, twice, the second counted
+             from zero and traced, with its host re-runs (fallbacks) and
+             re-recordings (escalations) counted and every reported mate
+             checked against the genome; on the first 1,000 pairs it must
+             write what the V2 host engine writes (build_aligner(
+             host_engine=True)), both timed; on the 2,000 pairs of the -p
+             slice, -p 4 must write what -p 1 writes, and what the V2
+             host engine writes at -p 4, all three timed.  K14 is held to
+             its plain version on the --best run's first batch (8,192
+             pairs, the CLI's aligner), timed as in pev2: the numbers of
+             K14's line in the kernels line, the 2,048 pairs of pev2
+             beside them.
 
-Then the {"kernels": [...]} line (launches: the CLI runs, cli build
-included; K3 dense's library-run launches beside its 0), the script's
-total seconds, the nvidia-smi line, and last {"ok": true, "device":
+Phase device also prints the local memory per thread of K10's two
+instantiations (8/24 drivers: K10, K10r; 16/48: K14).  Then the
+{"kernels": [...]} line (launches: the CLI runs, cli build included; K3
+dense's library-run launches beside its 0), the seconds of each phase and
+of the script, the nvidia-smi line, and last {"ok": true, "device":
 {...}}.  Any failure raises and the script exits non-zero without that
 last line.  It needs one CUDA device and writes only under .smoke/ in
 the checkout.
@@ -197,6 +226,8 @@ from bowtie_tpu_torch.align import pe_device as pe  # noqa: E402
 from bowtie_tpu_torch.align import pe_ilv_device as ilv  # noqa: E402
 from bowtie_tpu_torch.align.pe_device import (  # noqa: E402
     DevicePairedBestAligner, exact_ranges_cat, exact_ranges_cat_plain)
+from bowtie_tpu_torch.align.pev2_device import (  # noqa: E402
+    DevicePairedV2Aligner)
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
     exact_ranges, exact_ranges_plain, resolve_rows, resolve_rows_plain)
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
@@ -1457,14 +1488,15 @@ BEST_POLICIES = (
     ("-v 1 -k 1 --best, offRate 13", dict(v=1), (1, INF, False), True))
 
 
-def k10_bytes(work, host, L, out) -> int:
+def k10_bytes(work, host, L, out, paired=False) -> int:
     """What the best-first machine must read and write: the distinct index
     items its plain version counted (as k7_bytes prices them), each lane's
-    initial state (pack_init's row, its [ndt, 2L] by-depth rows, its seed)
-    and every output as the kernel writes it (int32)."""
+    initial state (pack_init's row, a paired run's with its per-mate
+    columns; its [ndt, 2L] by-depth rows, its seed) and every output as
+    the kernel writes it (int32)."""
     B, ndt = host["rows_qp"].shape[:2]
     nd = host["act"].shape[1]
-    init_w = sum(w for _k, w in bd.init_layout(nd, ndt))
+    init_w = sum(w for _k, w in bd.init_layout(nd, ndt, paired))
     return (16 * work["occ_entries"] + 32 * work["bwt_blocks"]
             + 4 * work["sa_entries"] + 8 * work["ftab_entries"]
             + B * (4 * init_w + ndt * 2 * L + 8)
@@ -2140,6 +2172,239 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
     return stats
 
 
+PEV2_PAIRS = 2048              # K14 timed on as many pairs (one lane each)
+PEV2_SMALL_PAIRS = 256         # the -n 3 and walk-left cases
+PEV2_STEPS = 2000              # the plain version's step budget, timed
+# cases; BUDGET_STEPS in the two others (the budget cases), whose lanes
+# past it are all held to the V2 host engine: a plain iteration of K14
+# costs about the same whatever the lane count, so the budget, not the
+# pairs, sets the phase's time
+BUDGET_STEPS = 600
+# a timed K14 case's numbers in the kernels line
+K14_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_ms", "ops_ms",
+            "sector_ms", "bytes", "int_ops", "popc_ops", "ranks",
+            "rank_ends", "max_abs_err", "lanes", "plain_iterations",
+            "budget_lanes", "policy")
+NO_LIBRARY_K14 = ("n/a: no single PyTorch call records a best-first "
+                  "search's merged stream")
+# (name, aligner kwargs, rec_cap, thinned pair, pairs, plain budget)
+PEV2_POLICIES = (
+    ("-n 2 --best (12/28, rec_cap 8)", dict(mode="n", seed_mms=2), 8,
+     False, PEV2_PAIRS, PEV2_STEPS),
+    ("-n 3 --best (16/48, uncapped), plain budget 600",
+     dict(mode="n", seed_mms=3), None, False, PEV2_SMALL_PAIRS,
+     BUDGET_STEPS),
+    ("-n 2 --best (rec_cap 8), offRate 13, plain budget 600",
+     dict(mode="n", seed_mms=2), 8, True, PEV2_SMALL_PAIRS, BUDGET_STEPS))
+
+
+def v2_key(r):
+    """A paired result's fields, each hit's mate fields included."""
+    return ([(h.fw, h.tidx, h.toff, h.oms, h.stratum, h.cost, tuple(h.mms),
+              h.mate, h.mfw, h.mtidx, h.mtoff, h.mlen) for h in r.hits],
+            r.maxed, r.nvalid, r.sampled, r.nbuffered)
+
+
+def pev2_case(name, al, pairs, cap, max_steps, device, timed):
+    """K14 on the merged lanes of `pairs` (one per pair), held to its plain
+    version on the card on every lane the plain version finished within
+    max_steps, and K11 on its records; every lane past that budget that
+    K14 finished, replayed, to the V2 host engine.  Timed: K14 median of
+    20; the plain run counts the work its bound prices, and its time
+    includes the count (the plain version is run once: its iterations are
+    slow).  -> (row, the kernels-line entry when timed)."""
+    s1 = fill_seed_caches([p[0] for p in pairs], al.global_seed)
+    s2 = fill_seed_caches([p[1] for p in pairs], al.global_seed)
+    a = al.machine.record_inputs(pairs, s1, s2)
+    pair, cfg, host, seeds = a["args"]
+    kw = dict(a["kw"], max_steps=max_steps, rec_cap=cap)
+    kernels.reset_launches()
+    out, transitions = bd.run_machine(pair, cfg, host, seeds, **kw)
+    sync(device)
+    require(kernels.LAUNCHES["best_pev2"] == 1
+            and kernels.LAUNCHES["best_record"] == 0,
+            f"pev2 {name}: launched {kernels.LAUNCHES}")
+    B = len(seeds)
+    cfg_t = {k: torch.from_numpy(np.asarray(v).astype(np.int64)).to(device)
+             for k, v in cfg.items()}
+    pkw = {k: v for k, v in kw.items() if k not in ("maxbts", "max_steps")}
+    pkw.update(nfrag=pair.nfrag, fc=pair.ftab_chars)
+    seeds_h = seeds.cpu().numpy()
+
+    def plain(work=None):
+        st = bd.init_state(B, kw["L"], kw["nd"], kw["ndt"], seeds_h, host,
+                           kw["maxbts"], device)
+        return bd.run_machine_plain(pair, cfg_t, st, chunk=max_steps,
+                                    work=work, **pkw)
+    work_c = {} if timed else None
+    (st, iters), plain_ms = time_once(lambda: plain(work_c), device)
+    done = st["mode"] == bd.M_DONE
+    ok = done & ~st["overflow"]
+    require(bool((out["overflow"][done] == st["overflow"][done]).all()),
+            f"pev2 {name}: K14 and its plain version flag different lanes")
+    err = max_abs_err([(out[k][ok], st[k][ok])
+                       for k in ("hits", "nhits", "mode", "result", "count")])
+    require(err == 0, f"pev2 {name}: K14 disagrees with its plain version "
+            "on lanes the plain version finished")
+    packed = bd.best_pack(out)
+    err11 = max_abs_err([(packed, bd.best_pack_plain(out))])
+    require(err11 == 0, f"pev2 {name}: K11 disagrees with its plain version")
+    h = bd.unpack_harvest(packed.cpu().numpy(), B)
+    past = (~done & (out["mode"] == bd.M_DONE) & ~out["overflow"])
+    n_past = int(past.sum())
+    past = past.nonzero()[:, 0].tolist()
+    t = time.time()
+    take = a["take"]
+    replayed = 0
+    for j in past:
+        i = int(take[j])
+        res = al.replayer.replay(*pairs[i],
+                                 h["hits"][j, :int(h["nhits"][j])],
+                                 capped=cap is not None)
+        if res is None:
+            continue               # outran its cap: the aligner re-records
+        replayed += 1
+        require(v2_key(res) == v2_key(al.align_pair_host(*pairs[i])),
+                f"pev2 {name}: pair {i} ({pairs[i][0].name!r}): K14's "
+                "stream replays to another result than the V2 host "
+                "engine's")
+    nh = h["nhits"].astype(np.int64)
+    last = h["hits"][np.arange(B), np.maximum(nh - 1, 0), 6]
+    # the ranges of mate 2's drivers (each record's column 0: its outer)
+    recorded = np.arange(bd.H_MAX)[None, :] < nh[:, None]
+    mate2 = int((recorded & ~al.machine.out_m1[h["hits"][:, :, 0]]).sum())
+    row = dict(pairs=len(pairs), lanes=B, L=kw["L"], nd=kw["nd"],
+               ndt=kw["ndt"], dense=pair.dense, off_rate=pair.fw.off_rate,
+               rec_cap=cap, max_steps=max_steps,
+               plain_iterations=int(iters),
+               kernel_max_transitions=int(transitions),
+               budget_lanes=int((~done).sum()),
+               kernel_budget_lanes=int((out["mode"] != bd.M_DONE).sum()),
+               overflow_lanes=int(out["overflow"].sum()),
+               ranges=int(nh.sum()), max_ranges=int(nh.max()),
+               mate2_ranges=mate2,
+               capped_lanes=int(((nh > 0) & (last == 2)).sum()),
+               kernel_past_budget_lanes=n_past,
+               host_checked_pairs=replayed, host_s=time.time() - t,
+               plain_ms=plain_ms, max_abs_err=max(err, err11))
+    require(row["ranges"] > 0 and mate2 > 0,
+            f"pev2 {name}: {row['ranges']} ranges, {mate2} of mate 2")
+    if not timed:
+        return row, None
+    row["work"] = work_c
+    nbytes = k10_bytes(work_c, host, kw["L"], out, paired=True)
+    stats = dict(
+        name="K14 best_machine, paired record mode (K1/K5 inlined)",
+        route="cuda", source=BEST_SOURCE,
+        replaces="bowtie_tpu/align/pev2_device.py:54 PairedV2Machine "
+                 "(:157 record -> best_device.py:2224 run_chunk with "
+                 "record=True, paired=True: :1141-1159, :1666-1673, "
+                 ":675-681, :731, :1102, :1845, :1856, :2099)",
+        ms=time_ms(lambda: bd.run_machine(pair, cfg, host, seeds, **kw),
+                   device, 20),
+        plain_ms=plain_ms, plain_with_work_count=True,
+        **bounds(nbytes, work_c["rank_codes"], work_c["walk_steps"],
+                 work_c["word_codes"],
+                 2 * work_c["rank_ends"] + 2 * work_c["walk_steps"]
+                 + work_c["sa_loads"]),
+        library_ms=None, library=NO_LIBRARY_K14, max_abs_err=row[
+            "max_abs_err"], lanes=B, rank_ends=work_c["rank_ends"],
+        plain_iterations=row["plain_iterations"],
+        budget_lanes=row["budget_lanes"], bytes=nbytes, policy=name)
+    return row, stats
+
+
+def phase_pev2(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
+               refs):
+    """K14 against its plain version on the card: -n 2 --best on
+    PEV2_PAIRS pairs of the 4.6 Mbp index (timed), -n 3 --best and the
+    offRate-13 pair on PEV2_SMALL_PAIRS.  These two are the budget case:
+    the plain version stops at BUDGET_STEPS iterations, and every lane
+    past it that K14 finished is held, replayed, to the V2 host engine.
+    -> the kernels-line entry (cli_pe's K14 case on the CLI's first batch
+    takes its place there, these numbers beside it)."""
+    pairs = pe_pairs(rng, genome, rep_starts, seg_len, PEV2_PAIRS,
+                     os.path.join(work, "pev2_1.fq"),
+                     os.path.join(work, "pev2_2.fq"))
+    thin = (thinned_index(idx), thinned_index(idx_bw))
+    cases, stats = {}, None
+    for i, (name, akw, cap, walk, n, steps) in enumerate(PEV2_POLICIES):
+        t = time.time()
+        al = DevicePairedV2Aligner(
+            *(thin if walk else (idx, idx_bw)), refs, KPolicy(),
+            compact=walk, device=device, better=True, **akw)
+        require(al.rec_cap == 8, f"pev2 {name}: rec_cap {al.rec_cap}")
+        cases[name], st = pev2_case(name, al, pairs[:n], cap, steps, device,
+                                    timed=i == 0)
+        cases[name]["wall_s"] = time.time() - t
+        stats = stats or st
+    walk = cases[PEV2_POLICIES[2][0]]
+    require(not walk["dense"] and walk["off_rate"] == 13,
+            "the walk case ran on a dense pair")
+    require(cases[PEV2_POLICIES[1][0]]["nd"] == 16
+            and cases[PEV2_POLICIES[1][0]]["ndt"] == 48,
+            "the -n 3 case is not the 16/48 DAG")
+    require(cases[PEV2_POLICIES[0][0]]["capped_lanes"] > 0,
+            "pev2: no lane reached rec_cap 8")
+    require(sum(c["host_checked_pairs"] for c in cases.values()) > 0,
+            "pev2: no lane past the plain budget was held to the host")
+    emit({"phase": "pev2", "cases": cases, "ms": stats["ms"],
+          "local_bytes": bd.machine_local_bytes()})
+    return {"K14": stats}
+
+
+PEV2_TAG = "-1/-2 --best (-n 2 -k 1 --fr -X 250: the V2 engine, K14)"
+
+
+def cli_pev2_run(work, device, base, m1, m2, genome_chars):
+    """--best on the CLI_PE_PAIRS pairs through the CLI, twice, the
+    second counted from zero and traced: the recorded V2 engine must be
+    built, K14 and K11 launched, and every reported mate must equal its
+    reference substring but at its mismatches.  Then K14 on the CLI's
+    first batch (CLI_BATCH pairs), with the aligner the CLI built, held to
+    its plain version and timed as pev2_case does.  -> (row, launches,
+    the batch case's kernels-line entry)."""
+    out = os.path.join(work, "cli_pev2.out")
+    argv = ["--best", "-x", base, "-1", m1, "-2", m2, out]
+    built = []
+    real_build = cli.build_aligner
+
+    def build(*a, **k):
+        built.append(real_build(*a, **k))
+        return built[-1]
+    cli.build_aligner = build
+    try:
+        first_s = run_cli(argv, device)[0]
+        ((wall, err), busy), launches = counted(lambda: profiled(
+            lambda: run_cli(argv, device)), device)
+    finally:
+        cli.build_aligner = real_build
+    al = built[-1]
+    require(isinstance(al, DevicePairedV2Aligner),
+            f"cli --best built {type(al).__name__}")
+    require(launches["best_pev2"] > 0 and launches["best_pack"] > 0
+            and launches["best_record"] == launches["best_machine"] == 0,
+            f"cli --best launched {launches}")
+    checked = check_verbose_mm(out, genome_chars)
+    require(checked > 0, "cli --best: no alignments")
+    batch = list(itertools.islice(PairedReadSource([m1], [m2]).pairs(),
+                                  CLI_BATCH))
+    batch_row, batch_stats = pev2_case(
+        "-1/-2 --best, the CLI's first batch", al, batch, al.rec_cap,
+        PEV2_STEPS, device, timed=True)
+    require(batch_row["lanes"] == CLI_BATCH,
+            f"cli --best: K14 took {batch_row['lanes']} of the batch's "
+            f"{CLI_BATCH} pairs")
+    return {"pairs": CLI_PE_PAIRS, "wall_s": wall, "first_run_s": first_s,
+            "pairs_per_s": CLI_PE_PAIRS / wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall, "launches": launches,
+            "k14_launches": launches["best_pev2"],
+            "fallbacks": al.fallbacks, "escalations": al.escalations,
+            "rec_cap": al.rec_cap, "mates_checked": checked,
+            "summary": err.strip().splitlines(),
+            "k14_batch": batch_row}, launches, batch_stats
+
+
 def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     """The default paired command (rec_cap 1 after phase 0) and -v 2 -a -m
     1 -S through the CLI on the card, each run twice, the second counted
@@ -2147,7 +2412,10 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     overflowed, by mate length, per round; every reported mate checked
     against the genome; the default command on a slice held to the V1
     host engine, and -p 4 to -p 1; K13 held to its plain version, and
-    timed, on the first batch.  -> (launches by run, the K13 batch row)."""
+    timed, on the first batch; --best likewise (cli_pev2_run), with K14
+    on its first batch, held to the V2 host engine on a slice and -p 4 to
+    -p 1 and to the V2 host engine's -p 4.  -> (launches by run, the K13
+    batch row, the K14 batch entry)."""
     genome_chars = CHARS[genome].tobytes()
     m1 = os.path.join(work, "cli_pe_1.fq")
     m2 = os.path.join(work, "cli_pe_2.fq")
@@ -2234,6 +2502,9 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
             batch = list(itertools.islice(
                 PairedReadSource([m1], [m2]).pairs(), CLI_BATCH))
             k13_batch = k13_case("cli batch", al, batch, device, True)
+    # --best: the V2 engine over merged streams K14 records
+    rows[PEV2_TAG], runs["cli " + PEV2_TAG], k14_batch = cli_pev2_run(
+        work, device, base, m1, m2, genome_chars)
     # the default command on a slice: the card's bytes are the V1 host
     # engine's
     h1, h2 = head_pairs(m1, m2, PE_HOST_SLICE, "pe_host", work)
@@ -2252,6 +2523,24 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     require(outs["card"][:2] == outs["host"][:2], "cli_pe: the card's "
             f"records of the first {PE_HOST_SLICE} pairs differ from the V1 "
             "host engine's")
+    # --best on the same slice: the card's bytes are the V2 host engine's
+    for name, host in (("card", False), ("host", True)):
+        out = os.path.join(work, f"pev2_slice.{name}")
+        cli.build_aligner = (lambda *a, _h=host, **k: real_build(
+            *a, **{**k, "host_engine": k.get("host_engine", False) or _h}))
+        try:
+            t = time.time()
+            err = run_cli(["--best", "-x", base, "-1", h1, "-2", h2, out],
+                          device)[1]
+            outs["best " + name] = (open(out, "rb").read(),
+                                    err.strip().splitlines(),
+                                    time.time() - t)
+        finally:
+            cli.build_aligner = real_build
+    require(outs["best card"][:2] == outs["best host"][:2]
+            and outs["best host"][0], "cli_pe: the card's --best records "
+            f"of the first {PE_HOST_SLICE} pairs differ from the V2 host "
+            "engine's")
     # -p 4 against -p 1 on the card
     p1, p2 = head_pairs(m1, m2, PE_P_SLICE, "pe_p", work)
     pouts = {}
@@ -2264,14 +2553,37 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
                     time.time() - t)
     require(pouts["4"][:2] == pouts["1"][:2],
             "cli_pe: -p 4 writes other records than -p 1")
+    # --best with -p 4 against -p 1 on the card (the replay's fork pool),
+    # and against -p 4 on the V2 host engine (ParallelHostAligner)
+    for name, p, host in (("best 1", "1", False), ("best 4", "4", False),
+                          ("best host 4", "4", True)):
+        out = os.path.join(work, f"pev2_p.{name.replace(' ', '_')}")
+        cli.build_aligner = (lambda *a, _h=host, **k: real_build(
+            *a, **{**k, "host_engine": k.get("host_engine", False) or _h}))
+        try:
+            t = time.time()
+            err = run_cli(["--best", "-p", p, "-x", base, "-1", p1, "-2",
+                           p2, out], device)[1]
+            pouts[name] = (open(out, "rb").read(),
+                           err.strip().splitlines(), time.time() - t)
+        finally:
+            cli.build_aligner = real_build
+    require(pouts["best 4"][:2] == pouts["best 1"][:2]
+            == pouts["best host 4"][:2] and pouts["best 1"][0],
+            "cli_pe: --best -p 4 writes other records than -p 1, or the "
+            "card's than the V2 host engine's")
     emit({"phase": "cli_pe", "pairs": CLI_PE_PAIRS, "gpu": gpu,
           "runs": rows, "k13_batch": k13_batch,
           "host_slice_pairs": PE_HOST_SLICE,
           "host_slice_bytes": len(outs["host"][0]),
+          "best_host_slice_bytes": len(outs["best host"][0]),
+          "best_host_slice_pairs_per_s": {
+              k[5:]: PE_HOST_SLICE / v[2] for k, v in outs.items()
+              if k.startswith("best ")},
           "host_slice_s": {k: v[2] for k, v in outs.items()},
           "p_slice_pairs": PE_P_SLICE,
           "p_slice_s": {k: v[2] for k, v in pouts.items()}})
-    return runs, k13_batch
+    return runs, k13_batch, k14_batch
 
 
 def main() -> int:
@@ -2298,37 +2610,57 @@ def main() -> int:
     emit({"phase": "device", "gpu": gpu,
           "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s})
+          "kernel_build_s": build_s,
+          # the local memory per thread of K10's two instantiations
+          # (K10/K10r: 8/24 drivers; K14: 16/48), reserved for every
+          # resident thread
+          "best_machine_local_bytes": bd.machine_local_bytes()})
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.time()
+        res = fn(*a)
+        phase_s[name] = time.time() - t
+        return res
 
     seg_len = 2000
-    genome, rep_starts, base, idx, fm, fm_sa = phase_index(
-        rng, work, device, 4_600_000, 64, seg_len)
-    stats, runs = phase_build(np.random.default_rng(args.seed + 1), work,
-                              device, genome, base, gpu)
-    stats.update(phase_kernels(rng, device, genome, rep_starts, seg_len, fm,
-                               fm_sa, 1 << 20))
+    genome, rep_starts, base, idx, fm, fm_sa = timed(
+        "index", phase_index, rng, work, device, 4_600_000, 64, seg_len)
+    stats, runs = timed("build", phase_build,
+                        np.random.default_rng(args.seed + 1), work, device,
+                        genome, base, gpu)
+    stats.update(timed("kernels", phase_kernels, rng, device, genome,
+                       rep_starts, seg_len, fm, fm_sa, 1 << 20))
     idx_bw = read_ebwt(base + ".rev")
     golden = (GoldenFM(idx), GoldenFM(idx_bw))      # the host oracle's
-    stats.update(phase_dfs(rng, work, device, genome, rep_starts, seg_len,
-                           idx, idx_bw, golden))
-    runs.update(phase_cli(rng, work, device, genome, rep_starts, seg_len,
-                          base, idx, fm_sa, CLI_READS, gpu))
-    runs.update(phase_cli_v(rng, work, device, genome, rep_starts, seg_len,
-                            base, idx, idx_bw, golden, CLI_READS, gpu))
-    stats.update(phase_n(rng, work, device, genome, rep_starts, seg_len,
-                         idx, idx_bw))
-    runs.update(phase_cli_n(rng, work, device, base, idx, idx_bw, golden,
-                            genome, rep_starts, seg_len, CLI_N_READS, gpu))
-    stats.update(phase_best(rng, work, device, genome, rep_starts, seg_len,
-                            idx, idx_bw))
-    runs.update(phase_cli_best(rng, work, device, base, genome, rep_starts,
-                               seg_len, gpu))
+    stats.update(timed("dfs", phase_dfs, rng, work, device, genome,
+                       rep_starts, seg_len, idx, idx_bw, golden))
+    runs.update(timed("cli", phase_cli, rng, work, device, genome,
+                      rep_starts, seg_len, base, idx, fm_sa, CLI_READS, gpu))
+    runs.update(timed("cli_v", phase_cli_v, rng, work, device, genome,
+                      rep_starts, seg_len, base, idx, idx_bw, golden,
+                      CLI_READS, gpu))
+    stats.update(timed("n", phase_n, rng, work, device, genome, rep_starts,
+                       seg_len, idx, idx_bw))
+    runs.update(timed("cli_n", phase_cli_n, rng, work, device, base, idx,
+                      idx_bw, golden, genome, rep_starts, seg_len,
+                      CLI_N_READS, gpu))
+    stats.update(timed("best", phase_best, rng, work, device, genome,
+                       rep_starts, seg_len, idx, idx_bw))
+    runs.update(timed("cli_best", phase_cli_best, rng, work, device, base,
+                      genome, rep_starts, seg_len, gpu))
     refs = unpack_reference(*read_bitpair_reference(base), plen=idx.plen)
-    stats.update(phase_pe(rng, np.random.default_rng(args.seed + 2), work,
-                          device, genome, rep_starts, seg_len, idx, idx_bw,
-                          refs))
-    pe_runs, k13_batch = phase_cli_pe(rng, work, device, base, genome,
-                                      rep_starts, seg_len, gpu)
+    stats.update(timed("pe", phase_pe, rng,
+                       np.random.default_rng(args.seed + 2), work, device,
+                       genome, rep_starts, seg_len, idx, idx_bw, refs))
+    # its own generator (seed + 3): every later phase reads what it read
+    # before this phase existed
+    stats.update(timed("pev2", phase_pev2,
+                       np.random.default_rng(args.seed + 3), work, device,
+                       genome, rep_starts, seg_len, idx, idx_bw, refs))
+    pe_runs, k13_batch, k14_batch = timed(
+        "cli_pe", phase_cli_pe, rng, work, device, base, genome, rep_starts,
+        seg_len, gpu)
     runs.update(pe_runs)
     # K13's line: the CLI's first batch, the main path's shape; the 512
     # pairs of phase pe beside it
@@ -2336,12 +2668,18 @@ def main() -> int:
     k13["at_512_pairs"] = {k: k13[k] for k in K13_KEYS}
     k13.update({k: k13_batch[k] for k in K13_KEYS},
                policy="-1/-2 default, the CLI's first batch (round 1)")
+    # K14's likewise: the CLI's first --best batch, the 2,048 pairs of
+    # phase pev2 beside it
+    k14 = stats["K14"]
+    k14["at_2048_pairs"] = {k: k14[k] for k in K14_KEYS}
+    k14.update({k: k14_batch[k] for k in K14_KEYS}, pairs=CLI_BATCH)
     counter = {"K2": "exact_ranges", "K12": "exact_ranges_cat",
                "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
                "K9": "derive_b_jobs", "K10": "best_machine",
                "K10r": "best_record", "K11": "best_pack",
+               "K14": "best_pev2",
                "K13": "pe_ilv", "K16": "sa_round"}
     main_path = [r for r in runs if r.startswith("cli ")]
     rows = []
@@ -2356,7 +2694,7 @@ def main() -> int:
         entry["gpu"] = gpu
         rows.append(entry)
     emit({"kernels": rows})
-    emit({"total_s": time.time() - t0})
+    emit({"phase_s": phase_s, "total_s": time.time() - t0})
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -180,7 +180,7 @@ def test_host_init_matches_jax(data, name, kw, pol):
     assert [repr(o) for o in jo] == [repr(o) for o in to]
     jh = jbd.HostInit(jo, data["ji"], data["jb"], maq, qo, ql, sl)
     th = tbd.HostInit(to, data["ti"], data["tb"], maq, qo, ql, sl)
-    assert set(th.cfg) == set(jh.cfg) - {"o_m1"}
+    assert set(th.cfg) == set(jh.cfg)          # o_m1 included
     for k in th.cfg:
         np.testing.assert_array_equal(th.cfg[k], jh.cfg[k], err_msg=k)
     rows = [i for i, r in enumerate(data["tr"]) if 4 <= len(r.seq) <= 255]

@@ -8,7 +8,9 @@ walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
 derives; K10 and K11 (the best-first machine) under -v and seeded
 policies, dense and walk-left; K10r (its record mode, the paired
 recorder's fused fw-DAG + rc-DAG run) capped and uncapped, and at rec_cap
-1 on the lanes the recorder's phase 0 (K12) leaves; K13 (the V1
+1 on the lanes the recorder's phase 0 (K12) leaves; K14 (its paired
+record mode, the V2 recorder's merged-mate DAG) under -v 1, -n 2 and
+-n 3, dense and walk-left; K13 (the V1
 interleave, chase and rescue of csrc/ilv.cu) on the recorder's streams,
 dense and walk-left, --fr and --ff; K16 (the
 prefix-doubling round of csrc/sa.cu) round for round, and the SA it builds
@@ -426,6 +428,58 @@ def test_record_kernel_matches_plain(card, tmp_path, kw, cap, dense):
     assert kernels.LAUNCHES["best_machine"] == 0
 
 
+@pytest.mark.parametrize("kw,cap", [
+    (dict(mode="v", v=1), 8),
+    (dict(mode="n", seed_mms=2), 8),
+    (dict(mode="n", seed_mms=3), None)], ids=["v1_cap8", "n2_cap8",
+                                              "n3_uncapped"])
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "walk"])
+def test_pev2_kernel_matches_plain(card, tmp_path, kw, cap, dense):
+    """K14 (best_machine_kernel's paired instantiation, the merged-mate
+    DAG of the V2 recorder: 8, 12 and 16 outer drivers) equals its plain
+    version on every lane the plain version finishes without overflow,
+    overflow flags alike, and launches as "best_pev2" only; each
+    instantiation reports its local memory, the paired one more."""
+    from bowtie_tpu_torch.align import best_device as tbd
+    from bowtie_tpu_torch.align.pev2_device import DevicePairedV2Aligner
+    from bowtie_tpu_torch.align.policy import KPolicy
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idx, refs = card
+    pairs, _m1, _m2 = _pairs(refs, 300, 31, tmp_path)
+    al = DevicePairedV2Aligner(idx, read_ebwt(BASE + ".rev"), refs,
+                               KPolicy(), compact=not dense, device="cuda",
+                               better=True, **kw)
+    s1 = fill_seed_caches([p[0] for p in pairs], 0)
+    s2 = fill_seed_caches([p[1] for p in pairs], 0)
+    a = al.machine.record_inputs(pairs, s1, s2)
+    pair, cfg, host, seeds = a["args"]
+    kernels.reset_launches()
+    out, _ = tbd.run_machine(*a["args"], **a["kw"], rec_cap=cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["best_pev2"] == 1
+    assert kernels.LAUNCHES["best_record"] == kernels.LAUNCHES[
+        "best_machine"] == 0
+    pkw = dict(a["kw"])
+    maxbts = pkw.pop("maxbts")
+    pkw.pop("max_steps")
+    st = tbd.init_state(len(seeds), pkw["L"], pkw["nd"], pkw["ndt"],
+                        seeds.cpu().numpy(), host, maxbts, "cuda")
+    cfg_t = {c: torch.from_numpy(np.asarray(v).astype(np.int64)).cuda()
+             for c, v in cfg.items()}
+    st, _ = tbd.run_machine_plain(pair, cfg_t, st, chunk=60000,
+                                  nfrag=pair.nfrag, fc=pair.ftab_chars,
+                                  rec_cap=cap, **pkw)
+    assert bool((st["mode"] == tbd.M_DONE).all())
+    assert torch.equal(out["overflow"], st["overflow"])
+    ok = ~st["overflow"]
+    for key in ("hits", "nhits", "mode", "result", "count"):
+        assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
+    assert int(out["nhits"].sum()) > 0
+    assert len(seeds) == len(pairs)
+    local = tbd.machine_local_bytes()
+    assert 0 < local["single"] < local["paired"]
+
+
 @pytest.mark.parametrize("kw,dense", [({}, True), ({}, False),
                                       (dict(fw1=True, fw2=True), True)],
                          ids=["fr_dense", "fr_offrate13", "ff_dense"])
@@ -471,12 +525,14 @@ def test_ilv_kernel_matches_plain(card, tmp_path, kw, dense):
                                   ["-n", "1", "-p", "2"],
                                   ["-n", "2", "-M", "1", "--sanity",
                                    "--stats"],
-                                  ["-v", "1", "--best", "-k", "2"]],
+                                  ["-v", "1", "--best", "-k", "2"],
+                                  ["-n", "2", "--best", "--stats"]],
                          ids=["n2_default", "v2_a_m3_S", "n1_p2",
-                              "n2_M1_sanity_stats", "v1_best_k2_host_v2"])
+                              "n2_M1_sanity_stats", "v1_best_k2_host_v2",
+                              "n2_best_stats"])
 def test_pe_cli_on_card_matches_cpu(card, tmp_path, args):
-    """Paired runs on the card (the recorded V1 engine; V2 on the host for
-    --best) write what they write on the CPU."""
+    """Paired runs on the card (the recorded V1 engine; --best, the V2
+    engine over streams K14 records) write what they write on the CPU."""
     from bowtie_tpu_torch.cli import align as cli
     idx, refs = card
     _pairs_, m1, m2 = _pairs(refs, 400, 23, tmp_path)

@@ -6,9 +6,11 @@ _1/_2 files of a pair, which files exist) and the stderr summary must be
 byte-identical (@PG aside).
 
 This module holds the rows the port sends to its paired host engines:
---best and --pev2 (V2), --nofw/--norc (V1); tests/test_torch_pe_recorded.py
-holds the rows that run the V1 engine over streams recorded by the plain
-K10r.  The reference side runs its host paired engines, which is what its
+--reportse (V2) and --nofw/--norc without --best or --pev2 (V1);
+tests/test_torch_pe_recorded.py holds the rows that run the V1 engine
+over streams recorded by the plain K10r, and tests/test_torch_pev2_cases.py
+the --best and --pev2 rows, which run the V2 engine over merged streams
+recorded by the plain K14.  The reference side runs its host paired engines, which is what its
 CLI picks on a CPU backend (bowtie_tpu/cli/align.py:500-507), and its host
 single-end engines for the unpaired records of a --12 file
 (BOWTIE_TPU_HOST_ENGINE=1, as tests/test_torch_cases.py does)."""
@@ -26,11 +28,20 @@ from test_torch_cases import _run, _tree_no_pg
 
 PE_KINDS = {"pe", "tabmix", "il", "tab", "pe2", "pegz"}
 PE_ROWS = [c for c in CASES if c[1] in PE_KINDS]
-HOST_FLAGS = {"--best", "--pev2", "--nofw", "--norc"}
+V2_FLAGS = {"--best", "--pev2"}
+HOST_FLAGS = {"--nofw", "--norc"}
+
+
+def on_v2_engine(case_args) -> bool:
+    """Whether the port runs the row's pairs on the V2 engine."""
+    return bool(V2_FLAGS & set(case_args))
 
 
 def on_host_engine(case_args) -> bool:
-    """Whether the port runs the row's pairs on a host engine."""
+    """Whether the port runs the row's pairs on a host engine: V2 under
+    --reportse, V1 under --nofw/--norc."""
+    if on_v2_engine(case_args):
+        return "--reportse" in case_args
     return bool(HOST_FLAGS & set(case_args))
 
 
@@ -98,12 +109,15 @@ def test_pe_case_parity(cid, infmt, case_args, env, tmp_path, monkeypatch):
 
 
 def test_pe_rows_cover_the_table():
-    """The 57 paired rows of the table, split between this module and
-    tests/test_torch_pe_recorded.py, together with the single-end rows of
-    tests/test_torch_cases.py take every row."""
+    """The 57 paired rows of the table, split between this module,
+    tests/test_torch_pe_recorded.py and tests/test_torch_pev2_cases.py,
+    together with the single-end rows of tests/test_torch_cases.py take
+    every row."""
     from test_torch_cases import ROWS as SE_ROWS
     from test_torch_pe_recorded import ROWS as REC_ROWS
+    from test_torch_pev2_cases import ROWS as V2_ROWS
     assert len(PE_ROWS) == 57
-    assert len(ROWS) + len(REC_ROWS) == 57
-    assert not set(c[0] for c in ROWS) & set(c[0] for c in REC_ROWS)
+    assert len(ROWS) + len(REC_ROWS) + len(V2_ROWS) == 57
+    names = [c[0] for c in ROWS + REC_ROWS + V2_ROWS]
+    assert len(set(names)) == 57
     assert len(SE_ROWS) + len(PE_ROWS) == len(CASES)

@@ -30,9 +30,10 @@ from bowtie_tpu_torch.utils.rng import fill_seed_caches
 
 CHUNK = 24
 L = 32
-# registers of the reference's state that the port leaves out (the paired
-# V2 machine's per-outer read length and seed)
-JAX_ONLY = {"qlen_o", "seed_o"}
+# registers of the reference's state that the port leaves out: none
+# (the per-outer read length and seed qlen_o/seed_o are compared,
+# each outer's the lane's own here)
+JAX_ONLY = set()
 
 
 def make_pe_data(d, n_pairs, max_len=32, seed=7, odd_mates=False):
