@@ -2153,7 +2153,7 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
         # from K10
         kernels.launch("best_pev2" if paired else
                        "best_record" if record else "best_machine",
-                       "bt_best_machine", ctypes.byref(a))
+                       "bt_best_machine", ctypes.byref(a), device=dev)
     steps = out.pop("steps")
     out["overflow"] = out["overflow"] != 0
     return out, (steps.max() if B else torch.tensor(0)).long()
@@ -2221,7 +2221,7 @@ def best_pack(out: dict) -> torch.Tensor:
                        out["overflow"].data_ptr(), out["count"].data_ptr(),
                        out["best_stratum"].data_ptr(), nh.data_ptr(),
                        out["hits"].data_ptr(), hoff.data_ptr(), B,
-                       packed.data_ptr())
+                       packed.data_ptr(), device=dev)
     return packed
 
 

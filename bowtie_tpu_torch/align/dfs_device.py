@@ -318,7 +318,7 @@ def derive_rows(scal: torch.Tensor, base_codes: torch.Tensor,
         kernels.launch("derive_rows", "bt_derive_rows", scal.data_ptr(),
                        base_codes.data_ptr(), base_qual.data_ptr(),
                        base_plen.data_ptr(), B, J, L, fc, out.data_ptr(),
-                       qqp.data_ptr())
+                       qqp.data_ptr(), device=dev)
     return out, qqp
 
 
@@ -1141,7 +1141,8 @@ def run_machine(pair: FMPair, jobs: dict, seeds: torch.Tensor,
             n_k=n_k, m_max=m_max, max_transitions=8 * max_steps,
             pairs=pairs.data_ptr(), elims=elims.data_ptr(),
             **{k: v.data_ptr() for k, v in out.items()})
-        kernels.launch("dfs_machine", "bt_dfs_machine", ctypes.byref(a))
+        kernels.launch("dfs_machine", "bt_dfs_machine", ctypes.byref(a),
+                       device=dev)
     steps = out.pop("steps")
     out["overflow"] = out["overflow"] != 0
     out["rng"] = u32(out["rng"])
@@ -1208,7 +1209,8 @@ def pack_hits(out: dict):
                        out["part_n"].data_ptr(), out["part_job"].data_ptr(),
                        out["part_pos"].data_ptr(),
                        out["part_refc"].data_ptr(), npart.data_ptr(),
-                       poff.data_ptr(), B, hits.data_ptr(), parts.data_ptr())
+                       poff.data_ptr(), B, hits.data_ptr(), parts.data_ptr(),
+                       device=dev)
     return hits, parts, nh_eff
 
 

@@ -1,4 +1,5 @@
-"""Batched exact-match search (-v 0): K2 exact search and K3 resolve.
+"""Batched exact-match search (-v 0): K2 exact search and K3 resolve
+(and K3 masked by a valid flag, bwt_rows_offsets).
 
 Replaces the per-thread recursive path of search_exact.c +
 GreedyDFSRangeSource::backtrack (ebwt_search_backtrack.h:237-297) with a
@@ -99,7 +100,7 @@ def exact_ranges(fm: FMIndexArrays, reads: torch.Tensor, lens: torch.Tensor):
     if n:
         kernels.launch("exact_ranges", "bt_exact_ranges", kernels.fm_view(fm),
                        reads.data_ptr(), lens.data_ptr(), n, L,
-                       top.data_ptr(), bot.data_ptr())
+                       top.data_ptr(), bot.data_ptr(), device=fm.device)
     return top, bot
 
 
@@ -153,6 +154,40 @@ def resolve_rows(fm: FMIndexArrays, rows: torch.Tensor):
                        if fm.sa is not None
                        else ("resolve_rows_walk", "bt_resolve_walk"))
         kernels.launch(name, entry, kernels.fm_view(fm), rows.data_ptr(), n,
-                       off.data_ptr(), ok.data_ptr())
+                       off.data_ptr(), ok.data_ptr(), device=fm.device)
     return off, ok
 
+
+
+def bwt_rows_offsets_plain(fm: FMIndexArrays, rows: torch.Tensor,
+                           valid: torch.Tensor):
+    """resolve_rows_plain of the rows where `valid`, as
+    bowtie_tpu/align/exact.py:142-148 masks it: row 0 is resolved in
+    place of an invalid row, whose offset is then 0 and ok False."""
+    off, ok = resolve_rows_plain(fm, torch.where(valid, rows.long(), 0))
+    return torch.where(valid, off, 0), ok & valid
+
+
+def bwt_rows_offsets(fm: FMIndexArrays, rows: torch.Tensor,
+                     valid: torch.Tensor):
+    """K3 masked by `valid` (bool [N]): joined-text offsets (int64) and
+    ok flags of the int64 BWT rows [N] where valid, 0 and False
+    elsewhere.  Launches K3's kernel of csrc/exact.cu on CUDA tensors,
+    counted as its own."""
+    if kernels.on_cpu(fm, rows, valid):
+        return bwt_rows_offsets_plain(fm, rows, valid)
+    kernels.check(rows, "rows", torch.int64, 1, fm.device)
+    kernels.check(valid, "valid", torch.bool, 1, fm.device)
+    if valid.shape != rows.shape:
+        raise ValueError(f"valid has shape {tuple(valid.shape)}, rows "
+                         f"{tuple(rows.shape)}")
+    n = rows.shape[0]
+    masked = torch.where(valid, rows, 0)
+    off = torch.empty(n, dtype=torch.int64, device=fm.device)
+    ok = torch.empty(n, dtype=torch.bool, device=fm.device)
+    if n:
+        entry = "bt_resolve_sa" if fm.sa is not None else "bt_resolve_walk"
+        kernels.launch("bwt_rows_offsets", entry, kernels.fm_view(fm),
+                       masked.data_ptr(), n, off.data_ptr(), ok.data_ptr(),
+                       device=fm.device)
+    return torch.where(valid, off, 0), ok & valid

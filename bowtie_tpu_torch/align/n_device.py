@@ -215,7 +215,7 @@ def derive_b_jobs(out_a: dict, gated: torch.Tensor, base_qual: torch.Tensor,
                        gated.data_ptr(), base_qual.data_ptr(),
                        base_plen.data_ptr(), qual_rounds.data_ptr(), B, L, J,
                        jrc, n, s, qt, maxbts, int(maq), int(norc),
-                       int(nofw), out.data_ptr())
+                       int(nofw), out.data_ptr(), device=dev)
     return out
 
 

@@ -136,7 +136,7 @@ def exact_ranges_cat(pair: FMPair, reads: torch.Tensor, lens: torch.Tensor,
         kernels.launch("exact_ranges_cat", "bt_exact_ranges_cat",
                        kernels.fm_view(pair.fw), kernels.fm_view(pair.bw),
                        reads.data_ptr(), lens.data_ptr(), efw.data_ptr(),
-                       n, L, top.data_ptr(), bot.data_ptr())
+                       n, L, top.data_ptr(), bot.data_ptr(), device=dev)
     return top, bot
 
 

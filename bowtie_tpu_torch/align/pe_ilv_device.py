@@ -695,7 +695,7 @@ def run_ilv(pair, st: dict, S: IlvStatic):
             slot_r1=S.slot_r1, seeds=st["rng"].data_ptr(),
             out=out.data_ptr(),
             **{k: st[k].data_ptr() for k in LANE_KEYS + GLOBAL_KEYS})
-        kernels.launch("pe_ilv", "bt_pe_ilv", ctypes.byref(a))
+        kernels.launch("pe_ilv", "bt_pe_ilv", ctypes.byref(a), device=dev)
     return ({k: out[i] for i, k in enumerate(OUT_KEYS)},
             out[len(OUT_KEYS)])
 

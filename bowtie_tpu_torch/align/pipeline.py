@@ -87,7 +87,8 @@ def one_row(fm: FMIndexArrays, mat: torch.Tensor, lens: torch.Tensor,
     if n:
         kernels.launch("one_row", "bt_one_row", kernels.fm_view(fm),
                        mat.data_ptr(), lens.data_ptr(), seeds2.data_ptr(),
-                       n, L, int(fm.sa is not None), out.data_ptr())
+                       n, L, int(fm.sa is not None), out.data_ptr(),
+                       device=fm.device)
     return out
 
 

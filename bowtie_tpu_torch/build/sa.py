@@ -83,7 +83,7 @@ def sa_round(r: torch.Tensor, k: int, big: int):
                           dtype=torch.uint8, device=r.device)
     kernels.launch("sa_round", "bt_sa_round", r.data_ptr(), n1,
                    min(k, n1), big, nr.data_ptr(), order.data_ptr(),
-                   maxg.data_ptr(), scratch.data_ptr())
+                   maxg.data_ptr(), scratch.data_ptr(), device=r.device)
     return nr, order, maxg
 
 

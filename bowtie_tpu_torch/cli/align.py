@@ -22,6 +22,7 @@ import sys
 import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 from ..align.best_device import DeviceBestAligner
 from ..align.best_driver import UnpairedBestAligner
@@ -231,9 +232,22 @@ def adjust_ebwt_base(base: str) -> str:
     return base
 
 
-def main(argv=None, device=None) -> int:
+@dataclass
+class Part:
+    """One process's part of a run whose reads are split over processes
+    (parallel/launch.py).  Under -S only the first part writes the
+    header, with the whole run's command line `cmdline`; no part prints
+    the summary, and each leaves its counts in `stats` for the launcher to
+    sum and print with print_summary."""
+    cmdline: str
+    first: bool
+    stats: AlignStats | None = None
+
+
+def main(argv=None, device=None, part: Part | None = None) -> int:
     """Run the aligner; `device` (default CUDA) is where the index lives
-    and the kernels run — the tests pass "cpu" for the plain versions."""
+    and the kernels run — the tests pass "cpu" for the plain versions.
+    `part` makes this run one part of a split run (Part)."""
     if "--version" in (argv if argv is not None else sys.argv[1:]):
         import platform
         print("bowtie-tpu-torch version 1.3.1-tpu-torch")
@@ -327,7 +341,7 @@ def main(argv=None, device=None) -> int:
         aligner = ParallelHostAligner(aligner, args.threads)
     try:
         return _run(args, argv, idx, policy, aligner, paired, fmt, cont,
-                    fallbacks, dev)
+                    fallbacks, dev, part)
     finally:
         # stop the fork pools of -p (ParallelHostAligner, the recorded
         # paired engine's replay pool)
@@ -528,7 +542,7 @@ class SanityAligner:
 
 
 def _run(args, argv, idx, policy, aligner, paired, fmt, cont, fallbacks,
-         dev):
+         dev, part=None):
     dumps_active = bool(args.un or args.al or args.maxfile)
     qual_kw = dict(trim5=args.trim5, trim3=args.trim3,
                    solexa=args.solexa_quals,
@@ -563,9 +577,11 @@ def _run(args, argv, idx, policy, aligner, paired, fmt, cont, fallbacks,
         writer = SamWriter(out, idx.refnames, idx.plen.tolist(),
                            mapq=args.mapq, full_ref=args.fullref,
                            no_qname_trunc=args.no_qname_trunc,
-                           sam_nohead=args.sam_nohead,
+                           sam_nohead=(args.sam_nohead or
+                                       (part is not None and not part.first)),
                            sam_nosq=args.sam_nosq,
-                           cmdline=" ".join(argv or sys.argv[1:]),
+                           cmdline=(part.cmdline if part is not None else
+                                    " ".join(argv or sys.argv[1:])),
                            rgline=("\t".join(args.sam_RG)
                                    if args.sam_RG else None),
                            refidx=args.refidx)
@@ -757,16 +773,29 @@ def _run(args, argv, idx, policy, aligner, paired, fmt, cont, fallbacks,
                 emit_se(read, res)
     if metrics is not None:
         metrics.print(fallbacks=None if fallbacks is None else fallbacks())
-    return _finish(args, stats, t0, out, un_f, al_f, max_f)
+    return _finish(args, stats, t0, out, un_f, al_f, max_f, part)
 
 
-def _finish(args, stats, t0, out, un_f, al_f, max_f) -> int:
+def _finish(args, stats, t0, out, un_f, al_f, max_f, part=None) -> int:
     if args.time:
         dt = time.time() - t0
         print(f"Time searching: {dt:.2f}s "
               f"({stats.processed/max(dt,1e-9):.0f} reads/s)",
               file=sys.stderr)
+    if part is None:
+        print_summary(args, stats)
+    else:
+        part.stats = stats
+    for f in {id(x): x for x in (un_f, al_f, max_f) if x}.values():
+        f.close()
+    if args.hits:
+        out.close()
+    return 0
 
+
+def print_summary(args, stats: AlignStats) -> None:
+    """The end-of-run summary on stderr (HitSink::finish) for the counts
+    `stats` under the options `args`."""
     # Summary prints even under --quiet: the reference's HitSink
     # quiet_ flag (hit.h:279) is never wired to ARG_QUIET, so the
     # actual binary always emits the end-of-run stats; --quiet
@@ -813,12 +842,6 @@ def _finish(args, stats, t0, out, un_f, al_f, max_f) -> int:
               f"{stats.reported}", file=sys.stderr)
         print(f"reporter:counter:Bowtie,Paired alignments reported,"
               f"{2 * stats.reported_pairs}", file=sys.stderr)
-
-    for f in {id(x): x for x in (un_f, al_f, max_f) if x}.values():
-        f.close()
-    if args.hits:
-        out.close()
-    return 0
 
 
 class _DumpStream:

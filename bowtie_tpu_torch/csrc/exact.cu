@@ -10,9 +10,12 @@
 //   K4 bt_one_row       <- bowtie_tpu/align/pipeline.py:53 _one_row_kernel
 //   K12 bt_exact_ranges_cat <- bowtie_tpu/align/pe_device.py:37
 //                              exact_ranges_cat
+//   K15 bt_align_step   <- bowtie_tpu/parallel/mesh.py:55 sharded_align_step
+//                          (one launch per shard of the mesh)
 // Plain PyTorch versions: exact_ranges_plain / resolve_rows_plain in
 // align/exact.py, one_row_plain in align/pipeline.py,
-// exact_ranges_cat_plain in align/pe_device.py.
+// exact_ranges_cat_plain in align/pe_device.py, align_step_plain in
+// parallel/mesh.py.
 //
 // What bounds them: every LF step of a range end reads one 32-byte
 // sector of occ and one of BWT words (fm.cuh), and the steps of one lane
@@ -197,6 +200,31 @@ one_row_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
     out[2 * (size_t)n + b] = good ? 1 : 0;
 }
 
+// K15: K2, then K3 of the range's top row where the range is not empty
+// (sharded_align_step, parallel/mesh.py:62-67), in the strand's own
+// thread: the reference's jit feeds `top` from one op to the next through
+// memory, here it stays in a register.  Outputs top, bot ((0, 0) for no
+// range), off (the all-ones uint32 sentinel for no range) and ok (false
+// for no range).
+template <bool DENSE>
+__global__ void __launch_bounds__(kThreads)
+align_step_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
+                  const int32_t* __restrict__ lens, int n, int L,
+                  int64_t* __restrict__ top, int64_t* __restrict__ bot,
+                  int64_t* __restrict__ off, bool* __restrict__ ok) {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= n) return;
+    uint32_t t, u;
+    exact_one(fm, reads + (size_t)b * L, L, lens[b], t, u);
+    bool good = false;
+    uint32_t o = 0xFFFFFFFFu;
+    if (u > t) o = resolve_one<DENSE>(fm, t, good);
+    top[b] = t;
+    bot[b] = u;
+    off[b] = o;
+    ok[b] = good;
+}
+
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -247,6 +275,21 @@ int bt_one_row(const BtFM* fm, const void* reads, const void* lens,
         one_row_kernel<false><<<grid_for(n), kThreads, 0, s>>>(
             *fm, (const uint8_t*)reads, (const int32_t*)lens,
             (const int64_t*)seeds, n, L, (int64_t*)out);
+    return (int)cudaGetLastError();
+}
+
+int bt_align_step(const BtFM* fm, const void* reads, const void* lens,
+                  int n, int L, int dense, void* top, void* bot, void* off,
+                  void* ok, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dense)
+        align_step_kernel<true><<<grid_for(n), kThreads, 0, s>>>(
+            *fm, (const uint8_t*)reads, (const int32_t*)lens, n, L,
+            (int64_t*)top, (int64_t*)bot, (int64_t*)off, (bool*)ok);
+    else
+        align_step_kernel<false><<<grid_for(n), kThreads, 0, s>>>(
+            *fm, (const uint8_t*)reads, (const int32_t*)lens, n, L,
+            (int64_t*)top, (int64_t*)bot, (int64_t*)off, (bool*)ok);
     return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ HEADERS = ("fm.cuh",)
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
             "resolve_rows_walk": 0, "resolve_rows_sa": 0, "one_row": 0,
-            "derive_rows": 0,
+            "bwt_rows_offsets": 0, "align_step": 0, "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
             "best_machine": 0, "best_record": 0, "best_pev2": 0,
             "best_pack": 0,
@@ -138,6 +138,9 @@ _SIGNATURES = {
     # (fm, reads, lens, seeds, n, L, dense, out, stream)
     "bt_one_row": [_FM, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    _P, _P],
+    # (fm, reads, lens, n, L, dense, top, bot, off, ok, stream)
+    "bt_align_step": [_FM, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      _P, _P, _P, _P, _P],
     # (args, stream)
     "bt_dfs_machine": [ctypes.POINTER(DfsArgs), _P],
     # (scal, codes, qual, plen, B, J, L, fc, out, qqp, stream)
@@ -235,12 +238,16 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} is not contiguous")
 
 
-def launch(name: str, entry: str, *args) -> None:
-    """Call C entry `entry` with `args` plus the current stream, raise
-    on a launch error, and count the launch under `name`."""
+def launch(name: str, entry: str, *args, device: torch.device) -> None:
+    """Call C entry `entry` with `args` plus the current stream of
+    `device`, the CUDA device the arguments live on, with that device
+    current; raise on a launch error, and count the launch under `name`.
+    (The current device's stream would be another device's for the
+    shards of a mesh, parallel/mesh.py.)"""
     so = lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(so, entry)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(so, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}: "
                            f"{so.bt_error_string(rc).decode()}")

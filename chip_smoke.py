@@ -38,6 +38,15 @@ Phases, each printing one JSON line:
              median of 5).  K3 walk and K4 are also held to their plain
              versions on the index with its SA sample thinned to offRate
              13, where most walks pass MAX_WALK and end with ok=False.
+             K15 (align_step: K2 and K3 fused, the step parallel/mesh.py
+             runs on every shard) and the K3 remainder (bwt_rows_offsets:
+             K3 masked by a valid flag; K2's top rows, valid where the
+             range is not empty) run once each with the counters zeroed,
+             held exactly to their plain versions and K15 to K2 then K3,
+             and timed (median of 20; the plain versions one run, the
+             one they are held to); K2 then K3 on the same strands (K3
+             over every strand's row, masked, as the reference composes
+             them) is timed beside K15.
 5. cli     - the main path: 100,000 such reads as FASTQ through
              bowtie_tpu_torch.cli.align.main on the card (-v 0 -k 1
              verbose, through K4; -v 0 -a -m 3 -S, through K2 and K3
@@ -153,8 +162,9 @@ Phases, each printing one JSON line:
 14. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
              default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
              --fr -X 250; phase 0 on K12, K10r at rec_cap 1, then K13) and -v 2
-             -a -m 1 -S, each run twice and the second counted from zero
-             and traced, with the lanes phase 0 settled (synthesized), the
+             -a -m 1 -S, each counted from zero and traced (the default
+             command after a warm-up run), with the lanes phase 0 settled
+             (synthesized), the
              lanes K10r ran and those that overflowed, by mate length, per
              round (rec_cap 1, then None for round 2), the pairs K13
              decided, escalated and left to the host replay per round
@@ -169,8 +179,8 @@ Phases, each printing one JSON line:
              command's aligner), timed as in pe: the numbers of K13's
              line in the kernels line, the 512 pairs of pe beside them.
              Then --best (-n 2 -k 1 --best --fr -X 250: the V2 engine,
-             K14 and K11) on the 20,000 pairs, twice, the second counted
-             from zero and traced, with its host re-runs (fallbacks) and
+             K14 and K11) on the 20,000 pairs, counted from zero and
+             traced, with its host re-runs (fallbacks) and
              re-recordings (escalations) counted and every reported mate
              checked against the genome; on the first 1,000 pairs it must
              write what the V2 host engine writes (build_aligner(
@@ -181,15 +191,30 @@ Phases, each printing one JSON line:
              pairs, the CLI's aligner), timed as in pev2: the numbers of
              K14's line in the kernels line, the 2,048 pairs of pev2
              beside them.
+15. mesh   - K15 over a mesh of four entries, all the one card (one index
+             copy; each shard one launch on its stream), with the K3
+             remainder on each shard's top rows, and run_sharded (K6, K7)
+             over two such entries on phase dfs's 16,384 -v 2 -a -m 3
+             lanes, all counted from zero; the shards' arrays must equal
+             one align_step's, and run_sharded's one run_machine's, key by
+             key, with the most transitions.
+16. cli_dist - the launcher (python -m bowtie_tpu_torch.parallel.launch),
+             two gloo ranks as subprocesses on the one card, on cli_n's
+             100,000-read file: bowtie's default command (held to cli_n's
+             own run), -v 0 -a -m 3 -S and -v 0 -S -s 1000 -u 60000 --un:
+             the merged hits and --un file and rank 0's stderr must equal
+             one process's byte for byte, each timed (two ranks on one
+             card: not a scaling figure).
 
 Phase device also prints the local memory per thread of K10's two
 instantiations (8/24 drivers: K10, K10r; 16/48: K14).  Then the
 {"kernels": [...]} line (launches: the CLI runs, cli build included; K3
-dense's library-run launches beside its 0), the seconds of each phase and
-of the script, the nvidia-smi line, and last {"ok": true, "device":
-{...}}.  Any failure raises and the script exits non-zero without that
-last line.  It needs one CUDA device and writes only under .smoke/ in
-the checkout.
+dense's library-run launches beside its 0; K15's and the K3 remainder's,
+which no CLI path runs, phases kernels' and mesh's), the seconds of
+each phase and of the script, the nvidia-smi line, and last {"ok": true,
+"device": {...}}.  Any failure raises and the script exits non-zero
+without that last line.  It needs one CUDA device and writes only under
+.smoke/ in the checkout.
 """
 from __future__ import annotations
 
@@ -202,6 +227,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -229,7 +255,8 @@ from bowtie_tpu_torch.align.pe_device import (  # noqa: E402
 from bowtie_tpu_torch.align.pev2_device import (  # noqa: E402
     DevicePairedV2Aligner)
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
-    exact_ranges, exact_ranges_plain, resolve_rows, resolve_rows_plain)
+    bwt_rows_offsets, bwt_rows_offsets_plain, exact_ranges,
+    exact_ranges_plain, resolve_rows, resolve_rows_plain)
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
     ExactAligner, one_row, one_row_plain)
 from bowtie_tpu_torch.align.policy import INF, KPolicy  # noqa: E402
@@ -243,6 +270,10 @@ from bowtie_tpu_torch.index.ebwt_io import (  # noqa: E402
     read_bitpair_reference, read_ebwt, unpack_reference)
 from bowtie_tpu_torch.io.readers import (  # noqa: E402
     PairedReadSource, ReadSource)
+from bowtie_tpu_torch.parallel import dfs_mesh  # noqa: E402
+from bowtie_tpu_torch.parallel.mesh import (  # noqa: E402
+    align_step, align_step_plain, make_mesh, replicate_index,
+    shard_reads, sharded_align_step)
 from bowtie_tpu_torch.utils.rng import fill_seed_caches  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -391,6 +422,23 @@ def time_ms(fn, device, iters: int, warmup: int = 2) -> float:
 def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize()
+
+
+def sync_all() -> None:
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def time_all_ms(fn, iters: int) -> float:
+    """Mean ms of fn() on the host clock, every card synchronised before
+    and after the `iters` calls (work spread over several cards)."""
+    fn()
+    sync_all()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync_all()
+    return 1e3 * (time.perf_counter() - t) / iters
 
 
 def _nbytes(*tensors) -> int:
@@ -715,12 +763,66 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
     out["K3w"].update(overflow_rows=trows.numel(), overflow_not_ok=k3_over)
     out["K4"].update(overflow_strands=int(k4_hit.sum()),
                      overflow_not_ok=k4_over)
+
+    # K15 (K2 and K3 fused, the step parallel/mesh.py runs on every shard)
+    # and the K3 remainder (K3 masked by a valid flag), each run once
+    # with the counters zeroed: the launches of this phase
+    (got, (rem, rem_ok)), launches = counted(
+        lambda: (align_step(fm, mat, lens2),
+                 bwt_rows_offsets(fm, top, hit)), device)
+    want, k15_plain_ms = time_once(
+        lambda: align_step_plain(fm, mat, lens2), device)
+    err = max_abs_err(list(zip(got, want)))
+    require(err == 0, f"K15 disagrees with its plain version by {err}")
+    k2k3_off, k2k3_ok = resolve_rows(fm, torch.where(hit, top, 0))
+    err_k2k3 = max_abs_err([
+        (got[0], top), (got[1], bot),
+        (got[2], torch.where(hit, k2k3_off, 0xFFFFFFFF)),
+        (got[3], k2k3_ok & hit)])
+    require(err_k2k3 == 0, f"K15 disagrees with K2 then K3 by {err_k2k3}")
+
+    def k2_then_k3():
+        t, b = exact_ranges(fm, mat, lens2)
+        return resolve_rows(fm, torch.where(b > t, t, 0))
+
+    k15_nbytes = (index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat,
+                                       lens2) + 25 * n)
+    out["K15"] = dict(
+        name="K15 align_step (K2 + K3 fused; parallel/mesh.py)",
+        route="cuda", source=SOURCE,
+        replaces="bowtie_tpu/parallel/mesh.py:55",
+        ms=time_ms(lambda: align_step(fm, mat, lens2), device, 20),
+        plain_ms=k15_plain_ms,
+        k2_k3_ms=time_ms(k2_then_k3, device, 20),
+        k2_plus_k3w_ms=out["K2"]["ms"] + out["K3w"]["ms"],
+        **bounds(k15_nbytes, 2 * lf_steps + walk_steps, walk_steps,
+                 k2_words + walk_words,
+                 2 * n_ftab + 2 * 2 * lf_steps + 2 * walk_steps + m),
+        library_ms=None, library=NO_LIBRARY, max_abs_err=err,
+        max_abs_err_vs_k2_k3=err_k2k3, match=True, strands=n,
+        strands_hit=int(hit.sum()))
+    (prem, prem_ok), k3r_plain_ms = time_once(
+        lambda: bwt_rows_offsets_plain(fm, top, hit), device)
+    err = max_abs_err([(rem, prem), (rem_ok, prem_ok),
+                       (rem[hit], got[2][hit])])
+    require(err == 0, f"K3 remainder disagrees with its plain version or "
+            f"K15 by {err}")
+    out["K3r"] = dict(
+        name="K3 remainder bwt_rows_offsets (K3 masked by valid)",
+        route="cuda", source=SOURCE,
+        replaces="bowtie_tpu/align/exact.py:142",
+        ms=time_ms(lambda: bwt_rows_offsets(fm, top, hit), device, 20),
+        plain_ms=k3r_plain_ms,
+        **bounds(index_rank + _nbytes(fm.offs, top, hit) + 9 * n,
+                 walk_steps, walk_steps, walk_words, 2 * walk_steps + n),
+        library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
+        rows=n, valid_rows=m)
     emit({"phase": "kernels", "reads": n_reads, "strands": n,
           "index_bytes": fm.nbytes(), "l2_bytes": L2_BYTES,
           "index_fits_l2": fm.nbytes() < L2_BYTES,
           "checks": {k: v["match"] for k, v in out.items()},
           "ms": {k: v["ms"] for k, v in out.items()}})
-    return out
+    return out, launches, (mat_np, lens_np)
 
 
 DFS_READS = 16384
@@ -1031,7 +1133,8 @@ def counted(fn, device):
     result, the launches it made)."""
     kernels.reset_launches()
     res = fn()
-    sync(device)
+    if device.type == "cuda":
+        sync_all()
     return res, dict(kernels.LAUNCHES)
 
 
@@ -1422,6 +1525,8 @@ def phase_cli_n(rng, work, device, base, idx, idx_bw, golden, genome,
             lambda: run_cli(args + ["-x", base, reads, out], device)),
             device)
         fallbacks = dfs.FALLBACKS["lanes"]
+        with open(out + ".err", "w") as f:      # for phase cli_dist
+            f.write(err)
         require(all(launches[k] > 0 for k in (
             "derive_rows", "dfs_machine", "dfs_pack", "derive_b_jobs")),
             f"cli {tag} launched {launches}")
@@ -2357,8 +2462,8 @@ PEV2_TAG = "-1/-2 --best (-n 2 -k 1 --fr -X 250: the V2 engine, K14)"
 
 
 def cli_pev2_run(work, device, base, m1, m2, genome_chars):
-    """--best on the CLI_PE_PAIRS pairs through the CLI, twice, the
-    second counted from zero and traced: the recorded V2 engine must be
+    """--best on the CLI_PE_PAIRS pairs through the CLI, counted from
+    zero and traced: the recorded V2 engine must be
     built, K14 and K11 launched, and every reported mate must equal its
     reference substring but at its mismatches.  Then K14 on the CLI's
     first batch (CLI_BATCH pairs), with the aligner the CLI built, held to
@@ -2374,7 +2479,6 @@ def cli_pev2_run(work, device, base, m1, m2, genome_chars):
         return built[-1]
     cli.build_aligner = build
     try:
-        first_s = run_cli(argv, device)[0]
         ((wall, err), busy), launches = counted(lambda: profiled(
             lambda: run_cli(argv, device)), device)
     finally:
@@ -2395,7 +2499,7 @@ def cli_pev2_run(work, device, base, m1, m2, genome_chars):
     require(batch_row["lanes"] == CLI_BATCH,
             f"cli --best: K14 took {batch_row['lanes']} of the batch's "
             f"{CLI_BATCH} pairs")
-    return {"pairs": CLI_PE_PAIRS, "wall_s": wall, "first_run_s": first_s,
+    return {"pairs": CLI_PE_PAIRS, "wall_s": wall,
             "pairs_per_s": CLI_PE_PAIRS / wall, "device_busy_s": busy,
             "device_busy_share": busy / wall, "launches": launches,
             "k14_launches": launches["best_pev2"],
@@ -2407,15 +2511,15 @@ def cli_pev2_run(work, device, base, m1, m2, genome_chars):
 
 def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     """The default paired command (rec_cap 1 after phase 0) and -v 2 -a -m
-    1 -S through the CLI on the card, each run twice, the second counted
-    from zero and traced, with the lanes K10r ran and those that
-    overflowed, by mate length, per round; every reported mate checked
-    against the genome; the default command on a slice held to the V1
-    host engine, and -p 4 to -p 1; K13 held to its plain version, and
-    timed, on the first batch; --best likewise (cli_pev2_run), with K14
-    on its first batch, held to the V2 host engine on a slice and -p 4 to
-    -p 1 and to the V2 host engine's -p 4.  -> (launches by run, the K13
-    batch row, the K14 batch entry)."""
+    1 -S through the CLI on the card, each counted from zero and traced
+    (the default command after a warm-up run), with the lanes K10r ran
+    and those that overflowed, by mate length, per round; every reported
+    mate checked against the genome; the default command on a slice held
+    to the V1 host engine, and -p 4 to -p 1; K13 held to its plain
+    version, and timed, on the first batch; --best likewise
+    (cli_pev2_run), with K14 on its first batch, held to the V2 host
+    engine on a slice and -p 4 to -p 1 and to the V2 host engine's -p 4.
+    -> (launches by run, the K13 batch row, the K14 batch entry)."""
     genome_chars = CHARS[genome].tobytes()
     m1 = os.path.join(work, "cli_pe_1.fq")
     m2 = os.path.join(work, "cli_pe_2.fq")
@@ -2442,8 +2546,10 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
         cli.build_aligner = build
         pe.run_machine = machine
         try:
+            # a warm-up run of the default command only: the other modes'
+            # first runs take as long as their second
             k10r.append([])
-            first_s = run_cli(argv, device)[0]
+            first_s = run_cli(argv, device)[0] if not args else None
             k10r.append([])
             ((wall, err), busy), launches = counted(lambda: profiled(
                 lambda: run_cli(argv, device)), device)
@@ -2586,6 +2692,176 @@ def phase_cli_pe(rng, work, device, base, genome, rep_starts, seg_len, gpu):
     return runs, k13_batch, k14_batch
 
 
+MESH_ENTRIES = 4               # K15's mesh: four shards on the one card
+DFS_MESH_ENTRIES = 2
+
+
+def phase_mesh(work, device, idx, idx_bw, fm, strands, devices=None):
+    """K15 over a mesh of `devices` (default MESH_ENTRIES entries, all
+    the one card: each shard one launch on its stream, one copy of the
+    index), with the K3 remainder on each shard's top rows, and the DFS
+    machine over DFS_MESH_ENTRIES entries of the one card (over `devices`
+    when given) on phase dfs's -v 2 -a -m 3 lanes, all counted from zero;
+    then
+    held to one align_step and one run_machine on `device` over all
+    strands and lanes."""
+    mat_np, lens_np = strands
+    mesh = make_mesh(devices or [device] * MESH_ENTRIES)
+    mesh2 = make_mesh(devices or [device] * DFS_MESH_ENTRIES)
+    reps = replicate_index(fm, mesh)
+    require(len(reps) == len(set(mesh)), "one index copy per device")
+    shards, B = shard_reads(mesh, mat_np, lens_np)
+    reads = list(ReadSource([os.path.join(work, "dfs.fq")]).records())
+    jobs, _J = build_v_jobs_vec(reads, 2, False, False, DFS_L)
+    seeds = fill_seed_caches(reads, 0)
+    c0 = np.zeros(len(reads), np.int32)
+    pair = dfs.build_fmpair(idx, idx_bw, device, dense_sa=True)
+    kw = dict(n_k=dfs.INF32, m_max=3, max_steps=20000)
+
+    per = shards[0][0].shape[0]
+
+    def drive():
+        out = sharded_align_step(reps, shards)
+        rem = [bwt_rows_offsets(reps[d], t.to(d), (b > t).to(d))
+               for d, t, b in zip(mesh, out[0].split(per),
+                                  out[1].split(per))]
+        return out, rem, dfs_mesh.run_sharded(pair, jobs, seeds, c0, mesh2,
+                                              **kw)
+
+    t = time.time()
+    (sh, rem, (dout, dit)), launches = counted(drive, device)
+    wall = time.time() - t
+    require(launches["align_step"] == len(mesh)
+            and launches["bwt_rows_offsets"] == len(mesh)
+            and launches["dfs_machine"] == len(mesh2)
+            and launches["derive_rows"] == len(mesh2),
+            f"phase mesh launched {launches}")
+    mat = torch.from_numpy(mat_np).to(device)
+    lens2 = torch.from_numpy(lens_np).to(device)
+    one = align_step(fm, mat, lens2)
+    err = max_abs_err([(a[:B], b) for a, b in zip(sh, one)])
+    require(err == 0, f"K15 over {len(mesh)} shards differs from one "
+            f"launch by {err}")
+    has = one[1] > one[0]
+    roff = torch.cat([r[0].to(device) for r in rem])[:B]
+    rok = torch.cat([r[1].to(device) for r in rem])[:B]
+    err_r = max_abs_err([(roff[has], one[2][has]), (rok, one[3])])
+    require(err_r == 0, f"K3 remainder on the shards differs by {err_r}")
+    jd = dfs.upload_jobs(jobs, pair.ftab_chars, device)
+    single, sit = dfs.run_machine(
+        pair, jd, torch.from_numpy(seeds.astype(np.int64)).to(device),
+        torch.from_numpy(c0).to(device), **kw)
+    bad = [k for k in dfs.OUT_KEYS if not torch.equal(dout[k], single[k])]
+    require(not bad, f"run_sharded over {len(mesh2)} shards differs "
+            f"from one run_machine in {bad}")
+    require(dit == int(sit), f"run_sharded took {dit} transitions, one "
+            f"run_machine {int(sit)}")
+    emit({"phase": "mesh", "mesh": [str(d) for d in mesh],
+          "strands": B, "strands_per_shard": per,
+          "index_copies": len(reps), "dfs_mesh": [str(d) for d in mesh2],
+          "dfs_lanes": len(reads), "dfs_max_transitions": dit,
+          "dfs_nhits": int(dout["nhits"].sum()),
+          "launches": {k: v for k, v in launches.items() if v},
+          "wall_s": wall,
+          # CUDA events on one card; across cards the host clock around
+          # 20 calls, every card synchronised (events time one card only)
+          "k15_sharded_ms": (
+              time_ms(lambda: sharded_align_step(reps, shards), device, 20)
+              if len(reps) == 1 else time_all_ms(
+                  lambda: sharded_align_step(reps, shards), 20)),
+          "k15_one_launch_ms": time_ms(lambda: align_step(fm, mat, lens2),
+                                       device, 20),
+          "checks": {"k15_shards_equal_one_launch": True,
+                     "k3_remainder_equal_k15": True,
+                     "run_sharded_equal_run_machine": True}})
+    return launches
+
+
+DIST_RANKS = 2
+DIST_SKIP, DIST_UPTO = 1000, 60000
+
+
+def launch_ranks(cmd, ranks):
+    """`cmd` through `python -m bowtie_tpu_torch.parallel.launch` in
+    `ranks` processes on this card, joined on a free localhost port;
+    -> (wall s, each rank's stderr).  Every rank is stopped before this
+    returns."""
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    # torch's own c10d warnings stay out of the compared stderr
+    env = dict(os.environ, PYTHONPATH=ROOT, TORCH_CPP_LOG_LEVEL="ERROR")
+    t = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bowtie_tpu_torch.parallel.launch",
+         "--coordinator", f"localhost:{port}", "--num-hosts", str(ranks),
+         "--host-id", str(k), "--", *cmd], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for k in range(ranks)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t
+    rcs = [p.returncode for p in procs]
+    require(rcs == [0] * ranks, f"launcher ranks exited {rcs}: {errs}")
+    return wall, errs
+
+
+def phase_cli_dist(work, device, base, gpu, ranks=DIST_RANKS):
+    """The launcher: `ranks` ranks (rank k on cuda:{k mod the device
+    count}: all on the one card by default), on phase cli_n's
+    100,000-read file.  Each merged output (hits, --un, rank 0's stderr)
+    must equal, byte for byte, what one process writes for the same
+    command (cli_n's own run for bowtie's default command, where there
+    is one); the one process's output is moved aside first, so that both
+    name the same files in the SAM header's command line."""
+    reads = os.path.join(work, "n_reads.fq")
+    rows = {}
+    for tag, opts, n_reads, dumps in (
+            ("-n 2 -k 1 (default)", [], CLI_N_READS, ()),
+            ("-v 0 -a -m 3 -S", ["-v", "0", "-a", "-m", "3", "-S"],
+             CLI_N_READS, ()),
+            (f"-v 0 -S -s {DIST_SKIP} -u {DIST_UPTO} --un",
+             ["-v", "0", "-S", "-s", str(DIST_SKIP), "-u", str(DIST_UPTO),
+              "--un", os.path.join(work, "dist.un.fq")], DIST_UPTO,
+             (os.path.join(work, "dist.un.fq"),))):
+        out = os.path.join(work, "n0.out" if not opts
+                           else f"dist{len(rows)}.out")
+        if os.path.exists(out + ".err"):        # cli_n's run of it
+            with open(out + ".err") as f:
+                want_err = f.read()
+            single_s = None
+        else:
+            single_s, want_err = run_cli(
+                opts + ["-x", base, reads, out], device)
+        for f in (out,) + dumps:
+            os.replace(f, f + ".single")
+        wall, errs = launch_ranks(opts + ["-x", base, reads, out], ranks)
+        for f in (out,) + dumps:
+            with open(f, "rb") as a, open(f + ".single", "rb") as b:
+                require(a.read() == b.read(), f"cli_dist {tag}: merged "
+                        f"{os.path.basename(f)} differs from one process's")
+        require(errs[0] == want_err, f"cli_dist {tag}: rank 0's stderr "
+                f"differs from one process's: {errs[0]!r} {want_err!r}")
+        require(all("# reads processed" not in e for e in errs[1:]),
+                f"cli_dist {tag}: a rank but 0 printed a summary")
+        rows[tag] = {"ranks": ranks, "wall_s": wall,
+                     "reads_per_s": n_reads / wall, "single_wall_s": single_s,
+                     "equal_files": [os.path.basename(f)
+                                     for f in (out,) + dumps],
+                     "summary": errs[0].strip().splitlines()}
+    cards = min(ranks, torch.cuda.device_count())
+    emit({"phase": "cli_dist", "gpu": gpu, "reads": CLI_N_READS,
+          "cards": cards,
+          "note": (f"{ranks} ranks share {cards} card(s): not a scaling "
+                   "figure" if cards < ranks else
+                   f"{ranks} ranks, one card each"), "runs": rows})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2629,8 +2905,11 @@ def main() -> int:
     stats, runs = timed("build", phase_build,
                         np.random.default_rng(args.seed + 1), work, device,
                         genome, base, gpu)
-    stats.update(timed("kernels", phase_kernels, rng, device, genome,
-                       rep_starts, seg_len, fm, fm_sa, 1 << 20))
+    k_stats, k_launches, strands = timed(
+        "kernels", phase_kernels, rng, device, genome, rep_starts, seg_len,
+        fm, fm_sa, 1 << 20)
+    stats.update(k_stats)
+    runs["kernels"] = k_launches
     idx_bw = read_ebwt(base + ".rev")
     golden = (GoldenFM(idx), GoldenFM(idx_bw))      # the host oracle's
     stats.update(timed("dfs", phase_dfs, rng, work, device, genome,
@@ -2662,6 +2941,9 @@ def main() -> int:
         "cli_pe", phase_cli_pe, rng, work, device, base, genome, rep_starts,
         seg_len, gpu)
     runs.update(pe_runs)
+    runs["mesh"] = timed("mesh", phase_mesh, work, device, idx, idx_bw, fm,
+                         strands)
+    timed("cli_dist", phase_cli_dist, work, device, base, gpu)
     # K13's line: the CLI's first batch, the main path's shape; the 512
     # pairs of phase pe beside it
     k13 = stats["K13"]
@@ -2680,17 +2962,24 @@ def main() -> int:
                "K9": "derive_b_jobs", "K10": "best_machine",
                "K10r": "best_record", "K11": "best_pack",
                "K14": "best_pev2",
-               "K13": "pe_ilv", "K16": "sa_round"}
+               "K13": "pe_ilv", "K16": "sa_round",
+               "K15": "align_step", "K3r": "bwt_rows_offsets"}
     main_path = [r for r in runs if r.startswith("cli ")]
+    # K15 and the K3 remainder: no CLI path runs them (nor does the
+    # reference's CLI); their launches are phase kernels' and phase mesh's
+    off_cli = {"K15": ("kernels", "mesh"), "K3r": ("kernels", "mesh")}
     rows = []
     for key, entry in stats.items():
         c = counter[key]
         # launches: the main path's, the CLI runs; K3 dense runs only in
         # the library run, and has 0 here
-        entry["launches"] = sum(runs[r][c] for r in main_path)
+        entry["launches"] = sum(runs[r][c]
+                                for r in off_cli.get(key, main_path))
         entry["launches_by_run"] = {r: n[c] for r, n in runs.items()}
         require(key == "K3s" or entry["launches"] > 0,
-                f"{key} never ran on the main path")
+                f"{key} never ran on the main path"
+                + (" or in phases kernels and mesh" if key in off_cli
+                   else ""))
         entry["gpu"] = gpu
         rows.append(entry)
     emit({"kernels": rows})

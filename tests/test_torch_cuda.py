@@ -1,7 +1,9 @@
 """The CUDA kernels (csrc/exact.cu, csrc/dfs.cu, csrc/best.cu) against
 their plain PyTorch versions, on the card: K2, K3 (walk and dense SA) and
 K4 must agree element for element, also on an index whose SA sample is
-thinned so that most walks pass MAX_WALK and end with ok=False; K12 (K2
+thinned so that most walks pass MAX_WALK and end with ok=False; K15 (K2
+and K3 fused, parallel/mesh.py) and the K3 remainder, also over a
+two-entry mesh on one card; K12 (K2
 with a per-lane choice of the forward or the mirror index); K6, K7 and
 K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
 walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
@@ -108,6 +110,49 @@ def test_kernels_match_plain(card, form):
     assert kernels.LAUNCHES["one_row"] == 1
     assert kernels.LAUNCHES["resolve_rows_sa" if dense
                             else "resolve_rows_walk"] == 1
+
+
+@pytest.mark.parametrize("form", ["walk", "dense", "thin"])
+def test_align_step_matches_plain(card, form):
+    """K15 (parallel/mesh.py align_step) against its plain version and
+    against K2 followed by K3; the K3 remainder (bwt_rows_offsets)
+    against its plain version; a mesh of two entries on cuda:0 against
+    one launch."""
+    from bowtie_tpu_torch.parallel import mesh as tm
+    idx, refs = card
+    fm = from_ebwt(idx, device="cuda", dense_sa=form == "dense")
+    if form == "thin":
+        fm = thinned(fm)
+    reads = _reads(refs, 20001, 3)
+    reads[::50] = [np.zeros(0, np.uint8)] * len(reads[::50])
+    mat, lens = tex.right_align(reads)
+    m, ln = torch.from_numpy(mat).cuda(), torch.from_numpy(lens).cuda()
+    kernels.reset_launches()
+    got = tm.align_step(fm, m, ln)
+    for a, b in zip(got, tm.align_step_plain(fm, m, ln)):
+        assert torch.equal(a, b)
+    top, bot = tex.exact_ranges(fm, m, ln)
+    has = bot > top
+    off, ok = tex.resolve_rows(fm, torch.where(has, top, 0))
+    assert torch.equal(got[0], top) and torch.equal(got[1], bot)
+    assert torch.equal(got[2], torch.where(has, off, 0xFFFFFFFF))
+    assert torch.equal(got[3], ok & has)
+    assert 1000 < int(has.sum()) < len(reads) - 1000
+    valid = has & (torch.arange(len(reads), device="cuda") % 3 > 0)
+    ro = tex.bwt_rows_offsets(fm, top, valid)
+    for a, b in zip(ro, tex.bwt_rows_offsets_plain(fm, top, valid)):
+        assert torch.equal(a, b)
+    assert bool(ro[1].any()) and not bool(ro[1][~valid].any())
+    mesh = tm.make_mesh(["cuda:0", "cuda:0"])
+    reps = tm.replicate_index(fm, mesh)
+    assert list(reps.values()) == [fm]
+    shards, B = tm.shard_reads(mesh, mat, lens)
+    sharded = tm.sharded_align_step(reps, shards)
+    for a, b in zip(sharded, got):
+        assert torch.equal(a[:B], b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["align_step"] == 3
+    assert kernels.LAUNCHES["bwt_rows_offsets"] == 1
 
 
 @pytest.mark.parametrize("short", [False, True], ids=["mixed", "short"])

@@ -152,7 +152,11 @@ def test_port_imports_no_jax():
             "bowtie_tpu_torch/cli/build.py",
             "bowtie_tpu_torch/cli/inspect.py",
             "bin/bowtie-tpu-torch-build",
-            "bin/bowtie-tpu-torch-inspect"} <= names
+            "bin/bowtie-tpu-torch-inspect",
+            "bowtie_tpu_torch/parallel/__init__.py",
+            "bowtie_tpu_torch/parallel/mesh.py",
+            "bowtie_tpu_torch/parallel/dfs_mesh.py",
+            "bowtie_tpu_torch/parallel/launch.py"} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "bowtie_tpu"}, path
@@ -168,6 +172,14 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-v", "0", GOLD, "-c", "ACGTACGTAC"])
     assert from_ebwt(idx, device="cpu").device.type == "cpu"
+    from bowtie_tpu_torch.parallel import dfs_mesh, launch, mesh
+    for make in (mesh.make_mesh, dfs_mesh.make_dp_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(["--coordinator", "localhost:1", "--num-hosts", "1",
+                     "--host-id", "0", "--", "-v", "0", GOLD, "x.fq",
+                     "x.out"])
 
 
 def test_wrappers_refuse_mixed_devices():
