@@ -17,9 +17,11 @@ plain PyTorch version (in this module) on CPU tensors:
                      (:1445 _machine_step): the state machine; K5
                      (:261 _rank4, :303 _lf4pair) is inlined in it as
                      csrc/fm.cuh rank4 / lf4pair
-  K8 pack_hits    <- dfs_device.py:1873 _gather_rows, :1926
-                     _fuse_parts_jit, :1953 _pack_all: the per-lane hit
-                     and partial rows packed densely for one download
+  K8 pack_hits    <- dfs_device.py:1874 _gather_rows, :1927
+                     _fuse_parts_jit, :1954 _pack_all, :2011
+                     decode_hit_cols's hit gather: the per-lane hit and
+                     partial rows packed densely for one download, in one
+                     launch and one host sync
 
 The CUDA kernel of K7 runs one thread per lane through that lane's
 transitions to M_DONE.  Its plain version is the lockstep translation of
@@ -1184,34 +1186,49 @@ def pack_hits_plain(out: dict):
     return hits, _fused_parts(out)[lanes, slots], nh_eff
 
 
+# K8's scratch words by (device, stream): zeroed once, and left zeroed by
+# every launch (csrc/dfs.cu dfs_pack_kernel)
+_PACK_SCRATCH: dict = {}
+
+
+def _pack_scratch(dev: torch.device, B: int) -> torch.Tensor:
+    words = kernels.lib().bt_dfs_pack_scratch_words(B)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = _PACK_SCRATCH.get(key)
+    if scratch is None or scratch.numel() < words:
+        scratch = torch.zeros(words, dtype=torch.int64, device=dev)
+        _PACK_SCRATCH[key] = scratch
+    return scratch
+
+
 def pack_hits(out: dict):
-    """K8: pack_hits_plain's result from run_machine's outputs.  The
-    exclusive scans of the counts are torch.cumsum; launches csrc/dfs.cu's
-    dfs_pack_kernel on CUDA tensors, one thread per (lane, slot)."""
+    """K8: pack_hits_plain's result from run_machine's outputs.  CPU
+    tensors take the plain version; CUDA tensors launch csrc/dfs.cu's
+    dfs_pack_kernel once (nh_eff, the scans and the copies) into outputs
+    of the most rows B lanes can have, and read the two row totals back
+    in one copy, the call's one host sync; the rows are views of them."""
     dev = out["nhits"].device
     if kernels.all_on_cpu(*out.values()):
         return pack_hits_plain(out)
     for k in ("hits", "nhits", "npart", "part_n", "part_job", "part_pos",
               "part_refc"):
         kernels.check(out[k], k, torch.int32, None, dev)
+    kernels.check(out["overflow"], "overflow", torch.bool, 1, dev)
+    if out["hits"].data_ptr() % 16:
+        raise ValueError("hits is not 16-byte aligned")
     B = out["nhits"].shape[0]
-    nh_eff = torch.where(out["overflow"], 0, out["nhits"])
-    npart = out["npart"]
-    hoff = torch.cumsum(nh_eff, 0) - nh_eff           # int64
-    poff = torch.cumsum(npart, 0) - npart
-    nh, npr = ((int(hoff[-1] + nh_eff[-1]), int(poff[-1] + npart[-1]))
-               if B else (0, 0))
-    hits = torch.empty((nh, HIT_W), dtype=torch.int32, device=dev)
-    parts = torch.empty((npr, PART_W), dtype=torch.int32, device=dev)
-    if nh or npr:
-        kernels.launch("dfs_pack", "bt_dfs_pack", out["hits"].data_ptr(),
-                       nh_eff.data_ptr(), hoff.data_ptr(),
-                       out["part_n"].data_ptr(), out["part_job"].data_ptr(),
-                       out["part_pos"].data_ptr(),
-                       out["part_refc"].data_ptr(), npart.data_ptr(),
-                       poff.data_ptr(), B, hits.data_ptr(), parts.data_ptr(),
-                       device=dev)
-    return hits, parts, nh_eff
+    nh_eff = torch.empty(B, dtype=torch.int32, device=dev)
+    hits = torch.empty((B * H_MAX, HIT_W), dtype=torch.int32, device=dev)
+    parts = torch.empty((B * P_MAX, PART_W), dtype=torch.int32, device=dev)
+    if not B:
+        return hits, parts, nh_eff
+    scratch = _pack_scratch(dev, B)
+    kernels.launch("dfs_pack", "bt_dfs_pack", *(out[k].data_ptr() for k in (
+        "hits", "nhits", "overflow", "npart", "part_n", "part_job",
+        "part_pos", "part_refc")), B, nh_eff.data_ptr(), hits.data_ptr(),
+        parts.data_ptr(), scratch.data_ptr(), device=dev)
+    nh, npr = scratch[2:4].tolist()
+    return hits[:nh], parts[:npr], nh_eff
 
 
 def decode_hit_cols(recs: np.ndarray, nh_eff: np.ndarray):

@@ -11,8 +11,9 @@
 //                        (:1445 _machine_step), with K5 (:261 _rank4,
 //                        :303 _lf4pair) inlined from fm.cuh, and K8's
 //                        :2006 _init_state_jit as its prologue
-//   K8 bt_dfs_pack    <- dfs_device.py:1873 _gather_rows, :1926
-//                        _fuse_parts_jit, :1953 _pack_all
+//   K8 bt_dfs_pack    <- dfs_device.py:1874 _gather_rows, :1927
+//                        _fuse_parts_jit, :1954 _pack_all, and :2011
+//                        decode_hit_cols's hit gather
 //   K9 bt_derive_b_jobs <- bowtie_tpu/align/n_device.py:85
 //                        _derive_b_jobs_device (less its K6 tail)
 // Plain PyTorch versions, which these are held to: derive_rows_plain,
@@ -47,8 +48,10 @@
 // not by bandwidth or arithmetic.  One thread per lane keeps the lane
 // state in registers and retires finished lanes without the lockstep's
 // masked work; warp-cooperative lanes and sorting lanes by mode are later
-// work.  K6 and K8 are elementwise copies, bound by bytes.
+// work.  K6 is an elementwise copy, bound by bytes; K8 moves a few MB
+// and is bound by launch and host-sync latency (its note below).
 #include "fm.cuh"
+#include "lookback.cuh"
 
 // Mirrors DfsArgs in bowtie_tpu_torch/kernels.py field for field.
 struct DfsArgs {
@@ -791,38 +794,116 @@ derive_rows_kernel(const int32_t* __restrict__ scal,
     o[F_NS_FTAB] = ns_ftab;
 }
 
-// K8: one thread per (lane, slot): hit slot s of the lane goes to dense
-// row hoff[lane] + s when s < nh_eff[lane], partial slot s to row
-// poff[lane] + s when s < npart[lane].
-__global__ void __launch_bounds__(kThreads)
+// K8: pack_hits_plain's function in one launch.  A block takes the next
+// tile of kPackLanes lanes from the counter, writes each lane's nh_eff (0
+// under overflow), scans nh_eff and npart over the tile and takes the
+// tile's two row offsets by look-back (warps 0 and 1, lookback.cuh).
+// Then each thread copies whole rows: a hit row is HIT_W / 4 int4 loads
+// and stores (the lane's rows are contiguous in and out), a partial row
+// is fused from part_n, part_job, part_pos[3] and part_refc[3] into two
+// int4 stores; a row finds its lane by a binary search of the tile's
+// row ends.  The last tile writes the two totals.  `scratch` holds the
+// tile counter, a count of finished blocks, the totals and two look-back
+// words per tile; the last block to finish zeroes the counters and words,
+// so the next call finds them zero without a memset.
+// What bounds it: chip_smoke.py k8_bytes, each counted row read and
+// written once and the per-lane counts, a few MB (0.00123 ms for phase
+// dfs's 16,384 lanes).  Its time is launch and host-sync latency, so it
+// is one launch, and its wrapper makes one copy of the totals and one
+// sync.
+constexpr int kPackLanes = 128;                // lanes a tile, one thread each
+constexpr int kPackHead = 4;                   // scratch words before the
+                                               // look-back words
+static_assert(HIT_W % 4 == 0, "hit rows are whole int4s");
+
+// The lane of the tile that owns `row`: the first whose row end passes it.
+__device__ __forceinline__ int row_owner(const uint32_t* end, uint32_t row) {
+    int lo = 0, hi = kPackLanes - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi) / 2;
+        if (end[mid] > row) hi = mid;
+        else lo = mid + 1;
+    }
+    return lo;
+}
+
+__global__ void __launch_bounds__(kPackLanes)
 dfs_pack_kernel(const int32_t* __restrict__ hits,
-                const int32_t* __restrict__ nh_eff,
-                const int64_t* __restrict__ hoff,
+                const int32_t* __restrict__ nhits,
+                const uint8_t* __restrict__ overflow,
+                const int32_t* __restrict__ npart,
                 const int32_t* __restrict__ part_n,
                 const int32_t* __restrict__ part_job,
                 const int32_t* __restrict__ part_pos,
-                const int32_t* __restrict__ part_refc,
-                const int32_t* __restrict__ npart,
-                const int64_t* __restrict__ poff, int B,
-                int32_t* __restrict__ hout, int32_t* __restrict__ pout) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= B * P_MAX) return;
-    const int b = r / P_MAX, s = r % P_MAX;
-    if (s < nh_eff[b]) {
-        const int4* src = reinterpret_cast<const int4*>(
-            hits + ((size_t)b * H_MAX + s) * HIT_W);
-        int4* dst = reinterpret_cast<int4*>(hout + (hoff[b] + s) * HIT_W);
-        for (int k = 0; k < HIT_W / 4; ++k) dst[k] = src[k];
+                const int32_t* __restrict__ part_refc, int B,
+                int32_t* __restrict__ nh_eff, int32_t* __restrict__ hout,
+                int32_t* __restrict__ pout, unsigned long long* scratch) {
+    __shared__ uint32_t hend[kPackLanes], pend[kPackLanes];  // row ends
+    __shared__ uint32_t warp_sums[kPackLanes / 32];
+    __shared__ unsigned long long base[2];
+    __shared__ int s_tile, s_last;
+    const int tile = lb::take_tile(scratch, &s_tile);
+    const int tiles = (B + kPackLanes - 1) / kPackLanes;
+    uint64_t* status = reinterpret_cast<uint64_t*>(scratch + kPackHead);
+    const long long b0 = (long long)tile * kPackLanes;
+    const long long b = b0 + threadIdx.x;
+    uint32_t nh = 0, np = 0;
+    if (b < B) {
+        nh = overflow[b] ? 0u : (uint32_t)nhits[b];
+        np = (uint32_t)npart[b];
+        nh_eff[b] = (int32_t)nh;
     }
-    if (s < npart[b]) {
-        const size_t p = (size_t)b * P_MAX + s;
-        int32_t* dst = pout + (poff[b] + s) * 8;
-        dst[0] = part_n[p];
-        dst[1] = part_job[p];
-        for (int k = 0; k < 3; ++k) {
-            dst[2 + k] = part_pos[3 * p + k];
-            dst[5 + k] = part_refc[3 * p + k];
+    uint32_t th, tp;
+    hend[threadIdx.x] =
+        lb::block_exclusive_scan<kPackLanes>(nh, warp_sums, th) + nh;
+    pend[threadIdx.x] =
+        lb::block_exclusive_scan<kPackLanes>(np, warp_sums, tp) + np;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp < 2) {            // warp 0: the hit rows, warp 1: the partials
+        const uint64_t total = warp ? tp : th;
+        uint64_t* word = status + 2 * (size_t)tile + warp;
+        if (lane == 0) lb::publish(word, 1, tile == 0, total);
+        const uint64_t prior =
+            tile > 0 ? lb::warp_look_back(status + warp, 2, tile, 1) : 0;
+        if (lane == 0) {
+            if (tile > 0) lb::publish(word, 1, true, prior + total);
+            base[warp] = prior;
+            if (tile == tiles - 1) scratch[2 + warp] = prior + total;
         }
+    }
+    __syncthreads();
+    for (uint32_t row = threadIdx.x; row < th; row += kPackLanes) {
+        const int i = row_owner(hend, row);
+        const uint32_t s = row - (i ? hend[i - 1] : 0u);
+        const int4* src = reinterpret_cast<const int4*>(
+            hits + ((b0 + i) * H_MAX + s) * HIT_W);
+        int4* dst = reinterpret_cast<int4*>(hout + (base[0] + row) * HIT_W);
+        int4 v[HIT_W / 4];
+        for (int q = 0; q < HIT_W / 4; ++q) v[q] = src[q];
+        for (int q = 0; q < HIT_W / 4; ++q) dst[q] = v[q];
+    }
+    for (uint32_t row = threadIdx.x; row < tp; row += kPackLanes) {
+        const int i = row_owner(pend, row);
+        const size_t p = (size_t)(b0 + i) * P_MAX
+            + (row - (i ? pend[i - 1] : 0u));
+        int4* dst = reinterpret_cast<int4*>(pout + (base[1] + row) * 8);
+        dst[0] = make_int4(part_n[p], part_job[p], part_pos[3 * p],
+                           part_pos[3 * p + 1]);
+        dst[1] = make_int4(part_pos[3 * p + 2], part_refc[3 * p],
+                           part_refc[3 * p + 1], part_refc[3 * p + 2]);
+    }
+    // every block's look-back is over once all have counted themselves
+    // finished: the last leaves the scratch zeroed for the next call
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        s_last = atomicAdd(scratch + 1, 1ull) == (unsigned long long)tiles - 1;
+    }
+    __syncthreads();
+    if (s_last) {
+        for (int i = threadIdx.x; i < 2 * tiles; i += kPackLanes)
+            status[i] = 0;
+        if (threadIdx.x == 0) scratch[0] = scratch[1] = 0;
     }
 }
 
@@ -951,18 +1032,25 @@ int bt_derive_rows(const void* scal, const void* codes, const void* qual,
     return (int)cudaGetLastError();
 }
 
-int bt_dfs_pack(const void* hits, const void* nh_eff, const void* hoff,
-                const void* part_n, const void* part_job,
-                const void* part_pos, const void* part_refc,
-                const void* npart, const void* poff, int B, void* hout,
-                void* pout, void* stream) {
-    dfs_pack_kernel<<<grid_for((long)B * P_MAX), kThreads, 0,
+// Scratch words K8 needs for B lanes; the wrapper allocates them zeroed
+// once and every call leaves them zeroed.
+int bt_dfs_pack_scratch_words(int B) {
+    return kPackHead + 2 * ((B + kPackLanes - 1) / kPackLanes);
+}
+
+int bt_dfs_pack(const void* hits, const void* nhits, const void* overflow,
+                const void* npart, const void* part_n, const void* part_job,
+                const void* part_pos, const void* part_refc, int B,
+                void* nh_eff, void* hout, void* pout, void* scratch,
+                void* stream) {
+    dfs_pack_kernel<<<(B + kPackLanes - 1) / kPackLanes, kPackLanes, 0,
                       (cudaStream_t)stream>>>(
-        (const int32_t*)hits, (const int32_t*)nh_eff, (const int64_t*)hoff,
+        (const int32_t*)hits, (const int32_t*)nhits,
+        (const uint8_t*)overflow, (const int32_t*)npart,
         (const int32_t*)part_n, (const int32_t*)part_job,
-        (const int32_t*)part_pos, (const int32_t*)part_refc,
-        (const int32_t*)npart, (const int64_t*)poff, B, (int32_t*)hout,
-        (int32_t*)pout);
+        (const int32_t*)part_pos, (const int32_t*)part_refc, B,
+        (int32_t*)nh_eff, (int32_t*)hout, (int32_t*)pout,
+        (unsigned long long*)scratch);
     return (int)cudaGetLastError();
 }
 

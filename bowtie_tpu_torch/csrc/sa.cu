@@ -16,241 +16,397 @@
 // The host reads maxg once a round and stops when it equals n.
 //
 // What bounds it: the round must read r once and write nr and order once,
-// 12 bytes a suffix (16 if the shifted read r[i+k] is counted as a second
-// read of r), so 1.2 GB and 0.36 ms at 3.35 TB/s for 10^8 suffixes.
-// Sorting needs far more traffic than that: a radix sort of the packed
-// keys moves each key and index twice a digit pass.
+// 12 bytes a suffix (chip_smoke.py k16_bounds; 16 if the shifted read
+// r[i+k] counts as a second read of r), so 1.2 GB and 0.36 ms at 3.35
+// TB/s for 10^8 suffixes.  A radix sort moves far more than that: each
+// digit pass reads and writes every 8-byte key and 4-byte index, 24 bytes
+// a suffix, so the passes set the round's time, and the most a pass can
+// do is stream at the memory's rate, every read and write coalesced.
 //
-// What the design does about it: the key is packed into one uint64 and
-// only its significant bits are sorted, ceil(log2((BIG+1)^2)) of them, in
-// 8-bit digits (7 passes at 10^8 suffixes).  Each LSD pass is three
-// parts: a per-tile histogram with shared-memory atomics, an exclusive
-// scan of the digit-major count table (scan_uint32 below, written out
-// here: no CUB, thrust or torch call), and a stable scatter in which a
-// tile's ranks follow input order: each warp takes its 32-element rows in
-// order, __match_any_sync and a popcount of the lower lanes rank a lane
-// among equal digits of its row, per-warp digit counters in shared memory
-// carry the rank across the warp's rows, and an exclusive scan of those
-// counters across warps puts the warps in order.  The first pass gathers
-// r[i + k] and builds the key itself, so the keys are never written
-// unsorted; the last pass scatters the indices straight into `order`.
-// The renumbering is a flag kernel, the same scan, and a scatter kernel.
-// Onesweep-style single-pass digit scans, fewer and wider passes, and
-// sorting only the still-tied groups of later rounds are later work.
+// What the design does about it: an LSD radix sort with one sweep over
+// the keys per digit (Adinets and Merrill, "Onesweep: A Faster Least
+// Significant Digit Radix Sort for GPUs", 2022), written out here: no
+// CUB, thrust or torch call.  The key is packed into one uint64 and only
+// its significant bits are sorted, ceil(log2((BIG+1)^2)) of them, in
+// 8-bit digits (7 passes at 10^8 suffixes, 8 at BIG near 2^31).
+// - hist_kernel reads r once, builds each key in registers and counts
+//   every pass's digit into a shared [pass][256] table, then adds it to
+//   the global one; the last block to finish scans it into offsets.  A
+//   warp whose 32 digits agree adds once, so a pass whose keys nearly
+//   all share one digit (all but the last suffix's, in the first round's
+//   high digits) does not serialise on one shared atomic.
+// - pass_kernel, once per digit: a block takes the next 6,144-key tile
+//   from a counter and holds 24 keys a thread in registers, two blocks
+//   an SM (with one, the passes waited on latency).  It ranks them
+//   stably: each warp takes its 32-key rows in order, a ballot per digit
+//   bit finds the lanes of a row with equal digits (the hardware's
+//   match.any was slower) and a popcount ranks a lane among them,
+//   per-warp counters carry the rank across the warp's rows, and a scan
+//   over the warps puts the warps in order.  The tile publishes its
+//   count of each digit, writes its keys and indices into shared memory
+//   in (digit, rank) order, and only then looks back for the counts of
+//   the tiles before it (lookback.cuh), which with the histogram's
+//   offsets place each digit's run: no [digit][tile] table is written or
+//   scanned.  It stores the runs from shared memory, neighbouring threads
+//   to neighbouring positions of one run, so the scatter leaves
+//   coalesced.  The first pass builds the keys from r; the last writes
+//   the indices straight into `order`.
+// - renumber_kernel flags each key change with a ballot over 32 sorted
+//   keys, scans the flags through the block and takes the tile's prefix
+//   by the same look-back.  The function ends in a scatter, nr[order[j]]
+//   = grp[j], whose 4-byte writes land in random sectors of device
+//   memory once `order` is random (the later rounds): done directly it
+//   took as long as 60 % of a whole torch.sort.  So the kernel buckets
+//   its (order[j], grp[j]) pairs by the top bits of order[j] and, after a
+//   grid barrier, writes nr from the buckets in order, a few MB of nr at
+//   a time, which L2 gathers into whole sectors.
+// A round is passes + 2 kernels after one memset of the histogram, the
+// tile counters and the look-back words.  Fewer, wider digits and sorting
+// only the still-tied groups of later rounds are later work.
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;                 // one block = 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 8;               // 32-element rows
-constexpr int kTile = kWarps * kRowsPerWarp * 32;   // 2048 elements
+constexpr int kItems = 24;                    // keys a thread holds
+constexpr int kWarpTile = kItems * 32;        // a warp's consecutive keys
+constexpr int kTile = kWarps * kWarpTile;     // 6,144 keys
 constexpr int kBits = 8;
 constexpr int kBins = 1 << kBits;             // == kThreads
-constexpr int kScanItems = 8;
-constexpr int kScanTile = kThreads * kScanItems;    // 2048 entries
+constexpr int kMaxPasses = 8;                 // 62-bit keys at BIG < 2^31
+constexpr int kRnItems = 16;                  // renumber: rows a warp takes
+constexpr int kRnTile = kWarps * kRnItems * 32;     // 4,096 keys
+constexpr int kBuckets = 128;                 // renumber: index buckets
+constexpr int kHistBlocksPerSM = 8;
 constexpr uint32_t kNoDigit = 0xFFFFFFFFu;
+// pass_kernel's dynamic shared memory: the tile's keys and indices in
+// output order, and the per-warp digit counters
+constexpr int kPassSmem = kTile * (int)(sizeof(uint64_t) + sizeof(int32_t))
+    + kWarps * kBins * (int)sizeof(uint32_t);
 
 static_assert(kBins == kThreads, "one thread per digit in the scans");
+static_assert(kBuckets <= kThreads, "one thread per bucket");
+static_assert(kWarpTile < (1 << 16), "a rank within a warp fits 16 bits");
 
 inline size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
-inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
-// Element j of the round: its packed key and its index.  The first pass
-// builds them from r; later passes read the previous pass's output.
-template <bool FIRST>
-__device__ __forceinline__ void load_item(
-        long long j, int n1, int k, uint32_t big, const int32_t* r,
-        const uint64_t* keys_in, const int32_t* vals_in, uint64_t& key,
-        int32_t& val) {
-    if (FIRST) {
-        const uint32_t r1 = (uint32_t)r[j];
-        const uint32_t r2 = j + k < n1 ? (uint32_t)r[j + k] : big;
-        key = (uint64_t)r1 * ((uint64_t)big + 1) + r2;
-        val = (int32_t)j;
-    } else {
-        key = keys_in[j];
-        val = vals_in[j];
-    }
+__device__ __forceinline__ uint64_t make_key(const int32_t* r, long long j,
+                                             int n1, int k, uint32_t big) {
+    const uint32_t r1 = (uint32_t)r[j];
+    const uint32_t r2 = j + k < n1 ? (uint32_t)r[j + k] : big;
+    return (uint64_t)r1 * ((uint64_t)big + 1) + r2;
 }
 
-// Index of the element that lane `lane` of warp `warp` takes in row `row`
-// of tile `tile`: warps own consecutive rows, so a warp's rows, taken in
-// order, follow input order.
-__device__ __forceinline__ long long elem_index(int tile, int warp, int row,
-                                                int lane) {
-    return (long long)tile * kTile + (warp * kRowsPerWarp + row) * 32 + lane;
-}
-
-// Histogram of one digit over one tile -> table[digit * tiles + tile].
-template <bool FIRST>
+// table[p * kBins + d] = the keys whose digit p is below d, for every
+// pass p: the grid strides over whole warps and adds its counts to the
+// table, and the last block to finish turns them into offsets.
 __global__ void __launch_bounds__(kThreads) hist_kernel(
-        const int32_t* r, int n1, int k, uint32_t big,
-        const uint64_t* keys_in, const int32_t* vals_in, int shift,
-        uint32_t* table, int tiles) {
-    __shared__ uint32_t bins[kBins];
-    bins[threadIdx.x] = 0;
+        const int32_t* __restrict__ r, int n1, int k, uint32_t big,
+        int passes, uint32_t* __restrict__ table, unsigned long long* done) {
+    __shared__ uint32_t bins[kMaxPasses * kBins];
+    __shared__ uint32_t warp_sums[kWarps];
+    __shared__ int s_last;
+    for (int i = threadIdx.x; i < kMaxPasses * kBins; i += kThreads)
+        bins[i] = 0;
     __syncthreads();
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int row = 0; row < kRowsPerWarp; ++row) {
-        const long long j = elem_index(blockIdx.x, warp, row, lane);
-        if (j < n1) {
-            uint64_t key;
-            int32_t val;
-            load_item<FIRST>(j, n1, k, big, r, keys_in, vals_in, key, val);
-            atomicAdd(&bins[(key >> shift) & (kBins - 1)], 1u);
-        }
-    }
-    __syncthreads();
-    table[(size_t)threadIdx.x * tiles + blockIdx.x] = bins[threadIdx.x];
-}
-
-// Stable scatter of one tile by one digit.  `offsets` is the scanned
-// digit-major table: offsets[d * tiles + t] elements precede tile t's
-// elements of digit d in the output.
-template <bool FIRST>
-__global__ void __launch_bounds__(kThreads) scatter_kernel(
-        const int32_t* r, int n1, int k, uint32_t big,
-        const uint64_t* keys_in, const int32_t* vals_in, int shift,
-        const uint32_t* offsets, int tiles, uint64_t* keys_out,
-        int32_t* vals_out) {
-    __shared__ uint32_t wcnt[kWarps][kBins];   // per warp, then warp offsets
-    __shared__ uint32_t tile_off[kBins];
-    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads)
-        wcnt[i / kBins][i % kBins] = 0;
-    __syncthreads();
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const uint32_t lower = (1u << lane) - 1u;
-    uint64_t key[kRowsPerWarp];
-    int32_t val[kRowsPerWarp];
-    uint32_t digit[kRowsPerWarp], rank[kRowsPerWarp];
-    for (int row = 0; row < kRowsPerWarp; ++row) {
-        const long long j = elem_index(blockIdx.x, warp, row, lane);
+    const int lane = threadIdx.x % 32;
+    const long long stride = (long long)gridDim.x * kThreads;
+    for (long long j0 = (long long)blockIdx.x * kThreads + threadIdx.x - lane;
+         j0 < n1; j0 += stride) {
+        const long long j = j0 + lane;
         const bool ok = j < n1;
-        uint32_t d = kNoDigit;
-        if (ok) {
-            load_item<FIRST>(j, n1, k, big, r, keys_in, vals_in, key[row],
-                             val[row]);
-            d = (uint32_t)(key[row] >> shift) & (kBins - 1);
+        const uint64_t key = ok ? make_key(r, j, n1, k, big) : 0;
+        const uint32_t valid = __ballot_sync(0xFFFFFFFFu, ok);
+        for (int p = 0; p < passes; ++p) {
+            const uint32_t d = (uint32_t)(key >> (p * kBits)) & (kBins - 1);
+            const uint32_t d0 = __shfl_sync(0xFFFFFFFFu, d, 0);
+            if (__all_sync(0xFFFFFFFFu, !ok || d == d0)) {
+                if (lane == 0)
+                    atomicAdd(&bins[p * kBins + d0], (uint32_t)__popc(valid));
+            } else if (ok) {
+                atomicAdd(&bins[p * kBins + d], 1u);
+            }
         }
-        const uint32_t peers = __match_any_sync(0xFFFFFFFFu, d);
-        const uint32_t before = __popc(peers & lower);
-        const uint32_t base = ok ? wcnt[warp][d] : 0u;
-        __syncwarp();
-        // the lowest lane of each digit group advances its counter
-        if (ok && before == 0) wcnt[warp][d] = base + __popc(peers);
-        __syncwarp();
-        digit[row] = d;
-        rank[row] = base + before;
     }
     __syncthreads();
-    {   // per digit: the elements of the warps before, and the tile's base
-        const int d = threadIdx.x;
-        uint32_t run = 0;
-        for (int w = 0; w < kWarps; ++w) {
-            const uint32_t c = wcnt[w][d];
-            wcnt[w][d] = run;
-            run += c;
+    for (int i = threadIdx.x; i < passes * kBins; i += kThreads)
+        if (bins[i]) atomicAdd(&table[i], bins[i]);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        s_last = atomicAdd(done, 1ull) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    for (int p = 0; p < passes; ++p) {
+        uint32_t* t = table + p * kBins + threadIdx.x;
+        uint32_t total;
+        *t = lb::block_exclusive_scan<kThreads>(__ldcg(t), warp_sums, total);
+    }
+}
+
+// One stable digit pass (the head of this file).  `hist` is this pass's
+// 256 digit offsets; `status` holds a look-back word per (tile, digit),
+// published under `epoch`.
+template <bool FIRST>
+__global__ void __launch_bounds__(kThreads, 2) pass_kernel(
+        const int32_t* __restrict__ r, int n1, int k, uint32_t big,
+        const uint64_t* __restrict__ keys_in,
+        const int32_t* __restrict__ vals_in, int shift,
+        const uint32_t* __restrict__ hist, uint64_t* status, uint32_t epoch,
+        unsigned long long* ticket, uint64_t* __restrict__ keys_out,
+        int32_t* __restrict__ vals_out) {
+    extern __shared__ __align__(16) unsigned char bt_smem[];
+    uint64_t* skey = reinterpret_cast<uint64_t*>(bt_smem);
+    int32_t* sval = reinterpret_cast<int32_t*>(skey + kTile);
+    uint32_t* wcnt = reinterpret_cast<uint32_t*>(sval + kTile);
+    __shared__ uint32_t start[kBins];   // the tile's first slot of digit d
+    __shared__ uint32_t adj[kBins];     // output position - tile slot
+    __shared__ uint32_t warp_sums[kWarps];
+    __shared__ int s_tile;
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) wcnt[i] = 0;
+    const int tile = lb::take_tile(ticket, &s_tile);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    uint32_t* mine = wcnt + warp * kBins;
+    const long long base = (long long)tile * kTile + warp * kWarpTile;
+    uint64_t key[kItems];
+    int32_t val[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+        const long long j = base + i * 32 + lane;
+        key[i] = 0;
+        val[i] = 0;
+        if (j < n1) {
+            if (FIRST) {
+                key[i] = make_key(r, j, n1, k, big);
+                val[i] = (int32_t)j;
+            } else {
+                key[i] = keys_in[j];
+                val[i] = vals_in[j];
+            }
         }
-        tile_off[d] = offsets[(size_t)d * tiles + blockIdx.x];
+    }
+    // the lanes of each row holding the same digit: a ballot per digit
+    // bit
+    uint32_t peers[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+        const bool ok = base + i * 32 + lane < n1;
+        const uint32_t d = (uint32_t)(key[i] >> shift) & (kBins - 1);
+        const uint32_t valid = __ballot_sync(0xFFFFFFFFu, ok);
+        uint32_t same = valid;
+#pragma unroll
+        for (int b = 0; b < kBits; ++b) {
+            const uint32_t ones = __ballot_sync(0xFFFFFFFFu, (d >> b) & 1u);
+            same &= (d >> b) & 1u ? ones : ~ones;
+        }
+        peers[i] = ok ? same : 0u;
+    }
+    // rank: digit << 16 | the keys of this digit before it in the warp;
+    // the lowest lane of each digit group advances its counter and hands
+    // the old count to its group
+    const uint32_t lower = (1u << lane) - 1u;
+    uint32_t rank[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+        const uint32_t d = (uint32_t)(key[i] >> shift) & (kBins - 1);
+        const int leader = __ffs(peers[i]) - 1;
+        uint32_t cnt = 0;
+        if (leader == lane) {
+            cnt = mine[d];
+            mine[d] = cnt + __popc(peers[i]);
+        }
+        __syncwarp();
+        cnt = __shfl_sync(0xFFFFFFFFu, cnt, leader < 0 ? lane : leader);
+        rank[i] = peers[i] ? d << 16 | (cnt + __popc(peers[i] & lower))
+                           : kNoDigit;
     }
     __syncthreads();
-    for (int row = 0; row < kRowsPerWarp; ++row) {
-        const uint32_t d = digit[row];
-        if (d == kNoDigit) continue;
-        const size_t pos = (size_t)tile_off[d] + wcnt[warp][d] + rank[row];
-        keys_out[pos] = key[row];
-        vals_out[pos] = val[row];
+    // thread d: the warps' offsets within digit d, and the tile's count
+    const int d = threadIdx.x;
+    uint32_t count = 0;
+    for (int w = 0; w < kWarps; ++w) {
+        const uint32_t c = wcnt[w * kBins + d];
+        wcnt[w * kBins + d] = count;
+        count += c;
     }
-}
-
-// In-place exclusive scan of one 2048-entry tile of `a`; the tile's total
-// goes to sums[tile].
-__global__ void __launch_bounds__(kThreads) scan_tile_kernel(
-        uint32_t* a, long long m, uint32_t* sums) {
-    __shared__ uint32_t s[kThreads];
-    const long long b0 = (long long)blockIdx.x * kScanTile
-        + (long long)threadIdx.x * kScanItems;
-    uint32_t v[kScanItems];
-    uint32_t tot = 0;
-    for (int i = 0; i < kScanItems; ++i) {
-        v[i] = b0 + i < m ? a[b0 + i] : 0u;
-        tot += v[i];
-    }
-    s[threadIdx.x] = tot;
+    uint64_t* word = status + (size_t)tile * kBins + d;
+    lb::publish(word, epoch, tile == 0, count);
+    uint32_t total;
+    const uint32_t local =
+        lb::block_exclusive_scan<kThreads>(count, warp_sums, total);
+    start[d] = local;
     __syncthreads();
-    for (int off = 1; off < kThreads; off <<= 1) {   // Hillis-Steele
-        const uint32_t x = threadIdx.x >= off ? s[threadIdx.x - off] : 0u;
-        __syncthreads();
-        s[threadIdx.x] += x;
-        __syncthreads();
+    // stage in (digit, rank) order first: the tiles before have had that
+    // long to publish when the look-back starts
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+        if (rank[i] == kNoDigit) continue;
+        const uint32_t di = rank[i] >> 16;
+        const uint32_t slot = start[di] + mine[di] + (rank[i] & 0xFFFFu);
+        skey[slot] = key[i];
+        sval[slot] = val[i];
     }
-    uint32_t run = s[threadIdx.x] - tot;
-    for (int i = 0; i < kScanItems; ++i) {
-        if (b0 + i < m) a[b0 + i] = run;
-        run += v[i];
+    uint64_t prior = 0;
+    if (tile > 0) {
+        prior = lb::look_back(status + d, kBins, tile, epoch);
+        lb::publish(word, epoch, true, prior + count);
     }
-    if (threadIdx.x == kThreads - 1) sums[blockIdx.x] = s[kThreads - 1];
+    // wraps below 0 for some digits; every position it gives is < n1
+    adj[d] = hist[d] + (uint32_t)prior - local;
+    __syncthreads();
+    const long long rest = n1 - (long long)tile * kTile;
+    const int valid = rest < kTile ? (int)rest : kTile;
+    for (int s = threadIdx.x; s < valid; s += kThreads) {
+        const uint64_t kk = skey[s];
+        const uint32_t pos = adj[(uint32_t)(kk >> shift) & (kBins - 1)] + s;
+        keys_out[pos] = kk;
+        vals_out[pos] = sval[s];
+    }
 }
 
-// Adds the scanned tile totals to each tile of `a`.
-__global__ void __launch_bounds__(kThreads) scan_add_kernel(
-        uint32_t* a, long long m, const uint32_t* sums) {
-    const uint32_t add = sums[blockIdx.x];
-    const long long b0 = (long long)blockIdx.x * kScanTile;
-    for (int i = threadIdx.x; i < kScanTile; i += kThreads)
-        if (b0 + i < m) a[b0 + i] += add;
-}
-
-// flags[j] = 1 where the sorted key changes at j (j > 0), else 0.
-__global__ void __launch_bounds__(kThreads) flag_kernel(
-        const uint64_t* keys, int n1, uint32_t* flags) {
-    const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (j < n1) flags[j] = j > 0 && keys[j] != keys[j - 1] ? 1u : 0u;
-}
-
-// nr[order[j]] = grp[j], grp = the exclusive scan of the flags plus the
-// flag itself; the last element's group is maxg.
+// nr[order[j]] = grp[j], grp[j] = the key changes in keys[1..j], and
+// maxg = grp[n1 - 1], in two phases of one persistent grid.  Phase 1: a
+// block takes a 4,096-key tile from the counter, flags its key changes
+// with a ballot per 32 keys, scans them, and takes the tile's prefix by
+// look-back; then it buckets its (order[j], grp[j]) pairs by the top bits
+// of order[j] and stores them through shared memory.  Bucket b holds the
+// indices b << bshift .. (b + 1) << bshift, so its place in `pairs` is
+// known without a histogram; a tile takes its stretch of it from the
+// bucket's cursor with one atomic add (the pairs of a bucket may lie in
+// any order: each index is written once).  Phase 2, after a grid
+// barrier: the blocks write nr from `pairs` in 4,096-pair chunks handed
+// out in order, so the writes in flight fall within a bucket or two of
+// nr, a few MB that stay in L2 until their sectors are whole.  A direct
+// nr[order[j]] scatter sends every 4-byte write to a random sector of
+// device memory.
 __global__ void __launch_bounds__(kThreads) renumber_kernel(
-        const uint64_t* keys, const uint32_t* scanned, const int32_t* order,
-        int n1, int32_t* nr, int32_t* maxg) {
-    const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (j >= n1) return;
-    const uint32_t g = scanned[j]
-        + (j > 0 && keys[j] != keys[j - 1] ? 1u : 0u);
-    nr[order[j]] = (int32_t)g;
-    if (j == n1 - 1) *maxg = (int32_t)g;
+        const uint64_t* __restrict__ keys, const int32_t* __restrict__ order,
+        int n1, int bshift, uint64_t* status, uint32_t* cursor,
+        unsigned long long* ticket, uint2* __restrict__ pairs,
+        int32_t* __restrict__ nr,
+        int32_t* __restrict__ maxg) {
+    __shared__ uint2 stage[kRnTile];
+    __shared__ uint32_t bcount[kBuckets], bstart[kBuckets], bbase[kBuckets];
+    __shared__ uint32_t warp_sums[kWarps];
+    __shared__ uint32_t s_prior;
+    __shared__ int s_tile;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int tiles = (int)((n1 + (long long)kRnTile - 1) / kRnTile);
+    const int nb = ((n1 - 1) >> bshift) + 1;
+    const uint32_t upto = (2u << lane) - 1u;     // lanes 0..lane
+    for (;;) {
+        if (threadIdx.x < kBuckets) bcount[threadIdx.x] = 0;
+        const int tile = lb::take_tile(ticket, &s_tile);
+        if (tile >= tiles) break;
+        const long long base =
+            (long long)tile * kRnTile + warp * kRnItems * 32;
+        uint32_t change = 0;            // bit i: this lane's key of row i
+        uint32_t dest[kRnItems];
+#pragma unroll
+        for (int i = 0; i < kRnItems; ++i) {
+            const long long j = base + i * 32 + lane;
+            dest[i] = j < n1 ? (uint32_t)order[j] : 0u;
+            if (j > 0 && j < n1 && keys[j] != keys[j - 1]) change |= 1u << i;
+        }
+        uint32_t flags[kRnItems];       // row i's changes, one bit a lane
+        uint32_t wtot = 0;
+#pragma unroll
+        for (int i = 0; i < kRnItems; ++i) {
+            flags[i] = __ballot_sync(0xFFFFFFFFu, (change >> i) & 1u);
+            wtot += __popc(flags[i]);
+        }
+        uint32_t total;
+        const uint32_t before = lb::block_exclusive_scan<kThreads>(
+            lane == 0 ? wtot : 0u, warp_sums, total);
+        const uint32_t wbase = __shfl_sync(0xFFFFFFFFu, before, 0);
+        if (warp == 0) {
+            uint64_t* word = status + tile;
+            if (lane == 0) lb::publish(word, 1, tile == 0, total);
+            const uint64_t prior =
+                tile > 0 ? lb::warp_look_back(status, 1, tile, 1) : 0;
+            if (lane == 0) {
+                if (tile > 0) lb::publish(word, 1, true, prior + total);
+                s_prior = (uint32_t)prior;
+            }
+        }
+        // each pair's bucket and its rank there (any order will do)
+        uint32_t rank[kRnItems];
+#pragma unroll
+        for (int i = 0; i < kRnItems; ++i) {
+            const long long j = base + i * 32 + lane;
+            if (j < n1) rank[i] = atomicAdd(&bcount[dest[i] >> bshift], 1u);
+        }
+        __syncthreads();
+        {   // thread b: bucket b's slots in the tile and place in `pairs`
+            const int b = threadIdx.x;
+            const uint32_t cnt = b < nb ? bcount[b] : 0u;
+            uint32_t all;
+            const uint32_t local =
+                lb::block_exclusive_scan<kThreads>(cnt, warp_sums, all);
+            if (b < nb) {
+                const uint32_t at = cnt ? atomicAdd(&cursor[b], cnt) : 0u;
+                bstart[b] = local;
+                // wraps below 0 for some buckets; every position is < n1
+                bbase[b] = ((uint32_t)b << bshift) + at - local;
+            }
+        }
+        __syncthreads();
+        uint32_t run = s_prior + wbase;
+#pragma unroll
+        for (int i = 0; i < kRnItems; ++i) {
+            const long long j = base + i * 32 + lane;
+            const uint32_t g = run + __popc(flags[i] & upto);
+            if (j < n1) {
+                stage[bstart[dest[i] >> bshift] + rank[i]] =
+                    make_uint2(dest[i], g);
+                if (j == n1 - 1) *maxg = (int32_t)g;
+            }
+            run += __popc(flags[i]);
+        }
+        __syncthreads();
+        const long long rest = n1 - (long long)tile * kRnTile;
+        const int valid = rest < kRnTile ? (int)rest : kRnTile;
+        for (int s = threadIdx.x; s < valid; s += kThreads) {
+            const uint2 p = stage[s];
+            pairs[bbase[p.x >> bshift] + s] = p;
+        }
+        __syncthreads();
+    }
+    lb::grid_barrier(ticket + 1, gridDim.x);
+    // chunks of `pairs` handed out in order: a block that falls behind
+    // holds one chunk, so the writes in flight stay within a few buckets
+    for (;;) {
+        const int chunk = lb::take_tile(ticket + 2, &s_tile);
+        const long long p = (long long)chunk * kRnTile + threadIdx.x;
+        if (p - threadIdx.x >= n1) break;
+#pragma unroll
+        for (int i = 0; i < kRnTile / kThreads; ++i) {
+            if (p + i * kThreads < n1) {
+                const uint2 q = pairs[p + i * kThreads];
+                nr[q.x] = (int32_t)q.y;
+            }
+        }
+        __syncthreads();
+    }
 }
 
-// Scratch entries the scan of m entries needs for its tile sums, at
-// every level.
-size_t scan_scratch(long long m) {
-    const long long tiles = (m + kScanTile - 1) / kScanTile;
-    return tiles + (tiles > 1 ? scan_scratch(tiles) : 0);
-}
-
-cudaError_t scan_uint32(uint32_t* a, long long m, uint32_t* sums,
-                        cudaStream_t s) {
-    const int tiles = ceil_div(m, kScanTile);
-    scan_tile_kernel<<<tiles, kThreads, 0, s>>>(a, m, sums);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || tiles == 1) return err;
-    err = scan_uint32(sums, tiles, sums + tiles, s);
-    if (err != cudaSuccess) return err;
-    scan_add_kernel<<<tiles, kThreads, 0, s>>>(a, m, sums);
-    return cudaGetLastError();
-}
-
-// The scratch layout of one round over n1 elements.
+// The scratch layout of one round over n1 elements; everything from
+// `zeroed` on is cleared by the round's one memset.
 struct Layout {
-    size_t keys[2], vals[2], table, sums, total;
+    size_t keys[2], vals[2], zeroed, hist, tickets, cursors, status,
+        rstatus, total;
     explicit Layout(int n1) {
-        const int tiles = ceil_div(n1, kTile);
-        const long long entries = (long long)kBins * tiles;
-        const long long scanned = entries > n1 ? entries : n1;
+        const long long tiles = ceil_div(n1, kTile);
+        const long long rtiles = ceil_div(n1, kRnTile);
         size_t at = 0;
         for (int i = 0; i < 2; ++i) {
             keys[i] = at;
@@ -260,10 +416,17 @@ struct Layout {
             vals[i] = at;
             at = align_up(at + (size_t)n1 * sizeof(int32_t));
         }
-        table = at;
-        at = align_up(at + (size_t)entries * sizeof(uint32_t));
-        sums = at;
-        total = align_up(at + scan_scratch(scanned) * sizeof(uint32_t));
+        zeroed = hist = at;
+        at = align_up(at + (size_t)kMaxPasses * kBins * sizeof(uint32_t));
+        // one a pass; renumbering's tiles, barrier, chunks; hist's blocks
+        tickets = at;
+        at = align_up(at + (kMaxPasses + 4) * sizeof(unsigned long long));
+        cursors = at;      // renumbering's bucket cursors
+        at = align_up(at + kBuckets * sizeof(uint32_t));
+        status = at;
+        at = align_up(at + (size_t)tiles * kBins * sizeof(uint64_t));
+        rstatus = at;
+        total = align_up(at + (size_t)rtiles * sizeof(uint64_t));
     }
 };
 
@@ -301,47 +464,61 @@ int bt_sa_round(const void* r_, int n1, int k, int big_, void* nr_,
                          (uint64_t*)(scratch + lay.keys[1])};
     int32_t* vals[2] = {(int32_t*)(scratch + lay.vals[0]),
                         (int32_t*)(scratch + lay.vals[1])};
-    uint32_t* table = (uint32_t*)(scratch + lay.table);
-    uint32_t* sums = (uint32_t*)(scratch + lay.sums);
+    uint32_t* hist = (uint32_t*)(scratch + lay.hist);
+    unsigned long long* tickets =
+        (unsigned long long*)(scratch + lay.tickets);
+    uint64_t* status = (uint64_t*)(scratch + lay.status);
+    uint64_t* rstatus = (uint64_t*)(scratch + lay.rstatus);
+    uint32_t* cursors = (uint32_t*)(scratch + lay.cursors);
     int32_t* order = (int32_t*)order_;
-    const int tiles = ceil_div(n1, kTile);
+    const int tiles = (int)ceil_div(n1, kTile);
     const uint64_t max_key = ((uint64_t)big + 1) * ((uint64_t)big + 1) - 1;
     const int passes = (sig_bits(max_key) + kBits - 1) / kBits;
+
+    cudaError_t err = cudaMemsetAsync(scratch + lay.zeroed, 0,
+                                      lay.total - lay.zeroed, s);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int hist_blocks = (int)(ceil_div(n1, kThreads) < (long long)sms
+                                  * kHistBlocksPerSM
+                                  ? ceil_div(n1, kThreads)
+                                  : (long long)sms * kHistBlocksPerSM);
+    hist_kernel<<<hist_blocks, kThreads, 0, s>>>(r, n1, k, big, passes,
+                                                 hist, tickets + passes + 3);
+    BT_CHECK();
+    for (const auto fn : {pass_kernel<true>, pass_kernel<false>}) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kPassSmem);
+        if (err != cudaSuccess) return (int)err;
+    }
     for (int p = 0; p < passes; ++p) {
-        const int shift = p * kBits;
         const uint64_t* kin = p ? keys[(p - 1) % 2] : nullptr;
         const int32_t* vin = p ? vals[(p - 1) % 2] : nullptr;
-        uint64_t* kout = keys[p % 2];
         int32_t* vout = p == passes - 1 ? order : vals[p % 2];
-        if (p == 0)
-            hist_kernel<true><<<tiles, kThreads, 0, s>>>(
-                r, n1, k, big, kin, vin, shift, table, tiles);
-        else
-            hist_kernel<false><<<tiles, kThreads, 0, s>>>(
-                r, n1, k, big, kin, vin, shift, table, tiles);
-        BT_CHECK();
-        cudaError_t err = scan_uint32(table, (long long)kBins * tiles, sums,
-                                      s);
-        if (err != cudaSuccess) return (int)err;
-        if (p == 0)
-            scatter_kernel<true><<<tiles, kThreads, 0, s>>>(
-                r, n1, k, big, kin, vin, shift, table, tiles, kout, vout);
-        else
-            scatter_kernel<false><<<tiles, kThreads, 0, s>>>(
-                r, n1, k, big, kin, vin, shift, table, tiles, kout, vout);
+        (p == 0 ? pass_kernel<true> : pass_kernel<false>)
+            <<<tiles, kThreads, kPassSmem, s>>>(
+                r, n1, k, big, kin, vin, p * kBits, hist + p * kBins,
+                status, (uint32_t)(p + 1), tickets + p, keys[p % 2], vout);
         BT_CHECK();
     }
-    // renumber: the sorted keys are in keys[(passes - 1) % 2], and every
-    // vals buffer is free (the last pass wrote `order`)
-    const uint64_t* sorted = keys[(passes - 1) % 2];
-    uint32_t* flags = (uint32_t*)vals[0];
-    const int blocks = ceil_div(n1, kThreads);
-    flag_kernel<<<blocks, kThreads, 0, s>>>(sorted, n1, flags);
-    BT_CHECK();
-    cudaError_t err = scan_uint32(flags, n1, sums, s);
+    // renumbering: a grid that fits on the card at once (its barrier),
+    // its pairs in the keys buffer the last pass did not write
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, renumber_kernel, kThreads, 0);
     if (err != cudaSuccess) return (int)err;
-    renumber_kernel<<<blocks, kThreads, 0, s>>>(
-        sorted, flags, order, n1, (int32_t*)nr_, (int32_t*)maxg_);
+    const long long rn_blocks = (long long)sms * per_sm;
+    const int bshift = sig_bits((uint64_t)(n1 - 1)) > 7
+        ? sig_bits((uint64_t)(n1 - 1)) - 7 : 0;
+    renumber_kernel<<<(int)(ceil_div(n1, kRnTile) < rn_blocks
+                            ? ceil_div(n1, kRnTile) : rn_blocks),
+                      kThreads, 0, s>>>(
+        keys[(passes - 1) % 2], order, n1, bshift, rstatus, cursors,
+        tickets + passes, (uint2*)keys[passes % 2],
+        (int32_t*)nr_, (int32_t*)maxg_);
     BT_CHECK();
     return 0;
 }

@@ -24,7 +24,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
 SOURCES = ("exact.cu", "dfs.cu", "best.cu", "sa.cu", "ilv.cu")
-HEADERS = ("fm.cuh",)
+HEADERS = ("fm.cuh", "lookback.cuh")
 
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
@@ -145,9 +145,11 @@ _SIGNATURES = {
     "bt_dfs_machine": [ctypes.POINTER(DfsArgs), _P],
     # (scal, codes, qual, plen, B, J, L, fc, out, qqp, stream)
     "bt_derive_rows": [_P, _P, _P, _P] + [ctypes.c_int] * 4 + [_P, _P, _P],
-    # (hits, nh_eff, hoff, part_n, part_job, part_pos, part_refc, npart,
-    #  poff, B, hout, pout, stream)
-    "bt_dfs_pack": [_P] * 9 + [ctypes.c_int, _P, _P, _P],
+    # (hits, nhits, overflow, npart, part_n, part_job, part_pos,
+    #  part_refc, B, nh_eff, hout, pout, scratch, stream)
+    "bt_dfs_pack": [_P] * 8 + [ctypes.c_int] + [_P] * 5,
+    # (B) -> the int64 scratch words bt_dfs_pack needs
+    "bt_dfs_pack_scratch_words": [ctypes.c_int],
     # (result, overflow, mode, npart, part_job, part_n, part_pos,
     #  part_refc, gated, qual, plen, qual_rounds, B, L, J, jrc, n, s, qt,
     #  maxbts, maq, norc, nofw, out, stream)

@@ -23,19 +23,23 @@ Phases, each printing one JSON line:
              held to its plain version on the card on every round of the
              forward text (nr, order, maxg); then, on a seeded
              100,000,000 bp text (the size of the C. elegans genome), the
-             whole device SA against host SA-IS (equal, both timed) and
+             whole device SA, held to host SA-IS after phase dfs (record
+             build_sais: SA-IS runs in a thread meanwhile; both timed), and
              the first and last rounds timed: K16 median of 20, the plain
              round median of 5, torch.sort(keys, stable=True) on the same
              packed keys median of 20 (the library yardstick, which the
-             port never calls).  Its inputs come from a generator of its
-             own (seed + 1), so every later phase reads what it read
-             before this phase existed.
+             port never calls), and one K16 round of each traced
+             (k16_split_ms: device ms and launches by kernel).  Its
+             inputs come from a generator of its own (seed + 1), so
+             every later phase reads what it read before this phase
+             existed.
 4. kernels - 2^20 seeded 36 bp reads (2^21 strands): K2 exact search,
              K3 resolve (walk-left over K2's top rows, and dense SA) and
              K4 (fused one-row path), each held equal element for element
              to its plain PyTorch version on the card and timed with CUDA
-             events (median of 20 runs after warm-up; plain versions
-             median of 5).  K3 walk and K4 are also held to their plain
+             events (median of 20 runs after warm-up; plain versions one
+             run each, after the run they are held to; K3 dense's plain
+             version median of 5).  K3 walk and K4 are also held to their plain
              versions on the index with its SA sample thinned to offRate
              13, where most walks pass MAX_WALK and end with ok=False.
              K15 (align_step: K2 and K3 fused, the step parallel/mesh.py
@@ -47,13 +51,13 @@ Phases, each printing one JSON line:
              one they are held to); K2 then K3 on the same strands (K3
              over every strand's row, masked, as the reference composes
              them) is timed beside K15.
-5. cli     - the main path: 100,000 such reads as FASTQ through
+5. cli     - the main path: 50,000 such reads as FASTQ through
              bowtie_tpu_torch.cli.align.main on the card (-v 0 -k 1
              verbose, through K4; -v 0 -a -m 3 -S, through K2 and K3
              walk), each with the launch counters zeroed just before and
              read just after.  Every reported hit must equal its reference
              substring, every planted exact read must align, and the
-             records of the first 4,000 reads must equal, byte for byte,
+             records of the first 1,000 reads must equal, byte for byte,
              what the same CLI writes for those reads on the CPU (the
              plain versions).  Then the same -a -m 3 alignment through the
              library (ExactAligner) with a dense-SA index, counted on its
@@ -67,18 +71,20 @@ Phases, each printing one JSON line:
              slots) on the dense pair, and for -v 1 -k 1 on 4,096 reads
              with the pair thinned to offRate 13 (walk-left), where K7 is
              held to the plain version on the lanes that finishes within
-             4,000 iterations, and on the lanes past that budget that K7
+             2,000 iterations, and on the lanes past that budget that K7
              finishes, to the host oracle (OracleAligner): the
              step-budget rule of align/dfs_device.py.  Every hit must
              equal its reference substring except at its reported
              mismatches.  The -v 2 -a -m 3 tables are timed; K7's and
              K8's bytes are those the run reads and writes, counted by
-             the plain versions.
-7. cli_v   - 100,000 such reads through the CLI on the card, -v 1 -k 1
+             the plain versions (K7's timed plain run counts them); one K8 call's launches and host syncs
+             are counted (torch's sync debug mode), and the boolean
+             index's syncs.
+7. cli_v   - 50,000 such reads through the CLI on the card, -v 1 -k 1
              (verbose) and -v 2 -a -m 3 -S, each counted from zero and
              traced by torch.profiler for the device's busy share, with
              the lanes re-run on the host oracle counted; the records of
-             the first 1,000 reads must equal the CPU CLI's byte for byte,
+             the first 400 reads must equal the CPU CLI's byte for byte,
              and the library aligner's results on them the host oracle's.
 8. n       - bowtie's default seeded mode: 16,384 reads of the cli_v mix
              with three mismatches in every third read and qualities from
@@ -90,11 +96,11 @@ Phases, each printing one JSON line:
              except at its reported mismatches.  K9 is timed under -n 2
              -k 1; its bytes are the lanes' scalars, their counted partial
              rows and the [B, 36, NJF] table it writes (k9_bytes).
-9. cli_n   - 100,000 such reads through the CLI on the card, bowtie's
+9. cli_n   - 50,000 such reads through the CLI on the card, bowtie's
              default command (no mode flag: -n 2 -l 28 -e 70 -k 1,
              verbose) and -n 2 -a -m 3 -S, each counted from zero and
              traced, held to the CPU CLI and the host oracle on the first
-             1,000 reads as in cli_v; then --sanity --stats on those reads
+             400 reads as in cli_v; then --sanity --stats on those reads
              (every batch also through the host oracle) and -n 2 on the
              in-repo .ebwtl index (tests/golden/small_index_l) against the
              CPU CLI, both off the main path.
@@ -110,12 +116,12 @@ Phases, each printing one JSON line:
              best-first engine (the budget rule of align/best_device.py).  Every hit must equal its reference
              substring except at its reported mismatches.  The first policy
              is timed; K10's bytes are those the run reads and writes,
-             counted by the plain version.
-11. cli_best - 50,000 such reads through the CLI on the card, -v 2 -m 1
+             counted by the plain version in its one, timed, run.
+11. cli_best - 25,000 such reads through the CLI on the card, -v 2 -m 1
              --best --strata -S and -n 2 --best -k 1 (verbose), each counted
              from zero and traced, with the reads re-run on the host engine
              counted; every hit must equal its reference substring except at
-             its reported mismatches, and the records of the first 400
+             its reported mismatches, and the records of the first 160
              reads must equal the CPU CLI's byte for byte.
 12. pe     - the paired recorder: 512 pairs of 50 bp mates (pe_pairs: the
              n phase's error and quality mix, fragments of 100-250 bases,
@@ -134,12 +140,13 @@ Phases, each printing one JSON line:
              (uncapped, every lane) on the dense pair, and -n 2 -k 1 at
              rec_cap 1 on 128 pairs with the pair thinned to offRate 13
              (walk-left).  The first policy is timed; K10r's bytes are
-             those the run reads and writes (k10_bytes).  K13 (pe_ilv,
+             those the run reads and writes (k10_bytes), counted by its
+             one, timed, plain run.  K13 (pe_ilv,
              the V1 interleave, chase and rescue) held exactly to its
              plain version on the card, all 12 outputs and each pair's
              iterations, on round 1's streams (rec_cap 1 after phase 0)
-             of the 512 pairs (timed: median of 20, plain median of 5;
-             its bound from what the plain version counts, k13_bounds),
+             of the 512 pairs (timed: median of 20, plain the one run it
+             is held to; its bound from what the plain version counts, k13_bounds),
              of the 128 pairs on the offRate-13 pair (walk-left; many
              pairs run out of the 4,096-iteration budget) and of 256
              pairs of the in-repo small_index (five fragments: the
@@ -150,16 +157,14 @@ Phases, each printing one JSON line:
              instantiation), held exactly to its plain version on the card
              (hits, nhits, mode, result, count; overflow flags) on every
              lane the plain version finished within its budget, and K11
-             on its records: -n 2 --best (12 outer / 28 flat drivers,
-             rec_cap 8) on 2,048 pe_pairs (their own generator, seed + 3;
-             timed: K14 median of 20, the plain version one run that also
-             counts the work its bound prices), -n 3 --best (16 / 48,
-             uncapped) and -n 2 --best on the offRate-13 pair on 256
-             pairs.  These two are the budget case: the plain version
-             stops at 600 iterations, and every pair past it that K14
-             finished replays its stream to the result of the V2 host
-             engine.
-14. cli_pe - 20,000 such pairs through the CLI on the card, bowtie's
+             on its records: -n 3 --best (16 / 48 drivers, uncapped) and
+             -n 2 --best (12 / 28, rec_cap 8) on the offRate-13 pair, on
+             256 pe_pairs (their own generator, seed + 3).  This is the
+             budget case: the plain version stops at 300 iterations, and
+             every pair past it that K14 finished replays its stream to
+             the result of the V2 host engine.  K14 on whole lanes, timed,
+             is cli_pe's case on the CLI's first --best batch.
+14. cli_pe - 12,000 such pairs through the CLI on the card, bowtie's
              default paired command (-1/-2, verbose: -n 2 -l 28 -e 70 -k 1
              --fr -X 250; phase 0 on K12, K10r at rec_cap 1, then K13) and -v 2
              -a -m 1 -S, each counted from zero and traced (the default
@@ -171,26 +176,27 @@ Phases, each printing one JSON line:
              and its launches, the pairs re-run on the host drivers
              (fallbacks) and re-recorded uncapped (escalations) counted; every reported mate must equal its
              reference substring except at its reported mismatches.  The
-             default command on the first 1,000 pairs must write what the
+             default command on the first 400 pairs must write what the
              port's V1 host engine writes (build_aligner(host_engine=
-             True)), and with -p 4 on the first 2,000 what it writes with
+             True)), and with -p 4 on the first 800 what it writes with
              -p 1.  K13 held exactly to its plain version on round 1's
              streams of the CLI's first batch (8,192 pairs, the default
              command's aligner), timed as in pe: the numbers of K13's
              line in the kernels line, the 512 pairs of pe beside them.
              Then --best (-n 2 -k 1 --best --fr -X 250: the V2 engine,
-             K14 and K11) on the 20,000 pairs, counted from zero and
+             K14 and K11) on the 12,000 pairs, counted from zero and
              traced, with its host re-runs (fallbacks) and
              re-recordings (escalations) counted and every reported mate
-             checked against the genome; on the first 1,000 pairs it must
+             checked against the genome; on the first 400 pairs it must
              write what the V2 host engine writes (build_aligner(
-             host_engine=True)), both timed; on the 2,000 pairs of the -p
+             host_engine=True)), both timed; on the 800 pairs of the -p
              slice, -p 4 must write what -p 1 writes, and what the V2
              host engine writes at -p 4, all three timed.  K14 is held to
              its plain version on the --best run's first batch (8,192
-             pairs, the CLI's aligner), timed as in pev2: the numbers of
-             K14's line in the kernels line, the 2,048 pairs of pev2
-             beside them.
+             pairs, the CLI's aligner, rec_cap 8: some lanes must reach
+             it), timed (K14 median of 20, the plain version one run that
+             also counts the work its bound prices): the numbers of K14's
+             line in the kernels line.
 15. mesh   - K15 over a mesh of four entries, all the one card (one index
              copy; each shard one launch on its stream), with the K3
              remainder on each shard's top rows, and run_sharded (K6, K7)
@@ -200,8 +206,8 @@ Phases, each printing one JSON line:
              key, with the most transitions.
 16. cli_dist - the launcher (python -m bowtie_tpu_torch.parallel.launch),
              two gloo ranks as subprocesses on the one card, on cli_n's
-             100,000-read file: bowtie's default command (held to cli_n's
-             own run), -v 0 -a -m 3 -S and -v 0 -S -s 1000 -u 60000 --un:
+             50,000-read file: bowtie's default command (held to cli_n's
+             own run), -v 0 -a -m 3 -S and -v 0 -S -s 1000 -u 30000 --un:
              the merged hits and --un file and rank 0's stderr must equal
              one process's byte for byte, each timed (two ranks on one
              card: not a scaling figure).
@@ -231,7 +237,9 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -516,6 +524,47 @@ def k16_bounds(n1: int) -> dict:
                 bytes=nbytes)
 
 
+def kernel_split(fn) -> dict:
+    """Device time and launches of one fn() by kernel: torch.profiler's
+    kernels and memsets, each under its own name (template arguments,
+    parameters and namespace cut), {name: {"ms", "launches"}}, and
+    "total_ms"."""
+    sync_all()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync_all()
+    split = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        key = e.key.replace("(anonymous namespace)::", "")
+        m = re.search(r"(\w+)\s*[<(]", key)
+        part = split.setdefault(m.group(1) if m else key,
+                                {"ms": 0.0, "launches": 0})
+        part["ms"] += e.self_device_time_total / 1e3
+        part["launches"] += e.count
+    if not split:
+        return {"note": "not measured: torch.profiler showed no device "
+                        "time"}
+    split["total_ms"] = sum(v["ms"] for v in split.values())
+    return split
+
+
+def host_syncs(fn) -> int:
+    """The synchronising CUDA calls one fn() makes, as torch's sync debug
+    mode reports them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
 def k16_rounds(codes, device, check_plain: bool):
     """Run the doubling loop on the card through K16 -> (SA, the ranks and
     step of the first and of the last round, BIG, rounds); with
@@ -543,7 +592,19 @@ def k16_rounds(codes, device, check_plain: bool):
 def phase_build(rng, work, device, genome, base, gpu):
     """bowtie-build --jax-sa and bowtie-inspect through the port's CLIs on
     phase index's genome, K16 against its plain version on every round of
-    its forward text, and K16 timed at 100 Mbp."""
+    its forward text, and K16 timed at 100 Mbp.  Host SA-IS of the 100 Mbp
+    text runs in a thread (its ctypes call lets go of the GIL) while this
+    and the next phases use the card.  -> (the K16 entry, the launches,
+    the check that joins that thread and holds the device SA to it)."""
+    text = rng.integers(0, 4, SA_BIG_BP, dtype=np.uint8)
+    sais = {}
+
+    def run_sais():
+        t = time.time()
+        sais["sa"] = bsa.suffix_array(text)
+        sais["s"] = time.time() - t
+    sais_thread = threading.Thread(target=run_sais, daemon=True)
+    sais_thread.start()
     name = "synthetic_4.6M seeded"
     fasta = os.path.join(work, "genome.fa")
     chars = CHARS[genome].tobytes()
@@ -591,16 +652,9 @@ def phase_build(rng, work, device, genome, base, gpu):
     _, _, _, _, fw_rounds = k16_rounds(genome, device, check_plain=True)
 
     # K16 timed at 100 Mbp, first and last round
-    text = rng.integers(0, 4, SA_BIG_BP, dtype=np.uint8)
-    t = time.time()
-    sa_host = bsa.suffix_array(text)
-    sais_s = time.time() - t
     t = time.time()
     sa_dev = bsa.suffix_array_doubling(text, device)
     dev_s = time.time() - t
-    require(np.array_equal(sa_dev, sa_host),
-            "the 100 Mbp device SA differs from SA-IS")
-    del sa_dev, sa_host
     order, first, last, big, big_rounds = k16_rounds(text, device,
                                                      check_plain=False)
     del order
@@ -622,12 +676,18 @@ def phase_build(rng, work, device, genome, base, gpu):
             plain_ms=time_ms(lambda: bsa.sa_round_plain(r, k, big),
                              device, 5),
             library_ms=time_ms(lambda: torch.sort(keys, stable=True),
-                               device, 20))
+                               device, 20),
+            split=kernel_split(lambda: bsa.sa_round(r, k, big)))
         del keys
     del first, last
     torch.cuda.empty_cache()
 
     fl = timed["first"]
+    # digit passes of this text's keys, and the kernels a round launched
+    passes = -(-((big + 1) ** 2 - 1).bit_length() // 8)
+    per_round = {t: None if "note" in v["split"] else sum(
+        p["launches"] for name, p in v["split"].items()
+        if name not in ("Memset", "total_ms")) for t, v in timed.items()}
     entry = dict(
         name="K16 sa_round", route="cuda", source=SA_SOURCE,
         replaces="bowtie_tpu/build/sa.py:137",
@@ -636,17 +696,28 @@ def phase_build(rng, work, device, genome, base, gpu):
         library="torch.sort(packed keys, stable=True)",
         max_abs_err=0, match=True, suffixes=n1,
         last_round=timed["last"], rounds_100m=big_rounds,
-        rounds_fw_4_6m=fw_rounds)
+        rounds_fw_4_6m=fw_rounds, passes=passes,
+        kernels_per_round=per_round)
     emit({"phase": "build", "gpu": gpu, "genome_bp": len(genome),
           "cli_build_s": build_s, "launches": launches,
           "files_equal_host_sais": True, "inspect_s": inspect_s,
           "inspect_decodes": True, "k16_rounds_checked": fw_rounds,
           "sa_100m": {"bp": SA_BIG_BP, "rounds": big_rounds,
-                      "device_s": dev_s, "sais_s": sais_s, "equal": True},
+                      "device_s": dev_s},
           "k16_ms": {t: v["ms"] for t, v in timed.items()},
           "plain_ms": {t: v["plain_ms"] for t, v in timed.items()},
-          "library_ms": {t: v["library_ms"] for t, v in timed.items()}})
-    return {"K16": entry}, {"cli build --jax-sa": launches}
+          "library_ms": {t: v["library_ms"] for t, v in timed.items()},
+          "k16_split_ms": {t: v["split"] for t, v in timed.items()},
+          "k16_passes": passes, "k16_kernels_per_round": per_round})
+
+    def check_sais():
+        sais_thread.join()
+        require("sa" in sais, "host SA-IS of the 100 Mbp text failed")
+        require(np.array_equal(sa_dev, sais["sa"]),
+                "the 100 Mbp device SA differs from SA-IS")
+        emit({"phase": "build_sais", "bp": SA_BIG_BP, "sais_s": sais["s"],
+              "equal": True})
+    return {"K16": entry}, {"cli build --jax-sa": launches}, check_sais
 
 
 def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
@@ -676,8 +747,8 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         name="K2 exact_ranges", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/exact.py:37",
         ms=time_ms(lambda: exact_ranges(fm, mat, lens2), device, 20),
-        plain_ms=time_ms(lambda: exact_ranges_plain(fm, mat, lens2),
-                         device, 5),
+        plain_ms=time_once(lambda: exact_ranges_plain(fm, mat, lens2),
+                           device)[1],
         **bounds(index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, mat, lens2)
                  + 16 * n, 2 * lf_steps, 0, k2_words,
                  2 * n_ftab + 2 * 2 * lf_steps),
@@ -698,7 +769,7 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         name="K3 resolve_rows (walk)", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/exact.py:99",
         ms=time_ms(lambda: resolve_rows(fm, rows), device, 20),
-        plain_ms=time_ms(lambda: resolve_rows_plain(fm, rows), device, 5),
+        plain_ms=time_once(lambda: resolve_rows_plain(fm, rows), device)[1],
         **bounds(index_rank + _nbytes(fm.offs, rows) + 9 * m, walk_steps,
                  walk_steps, walk_words, 2 * walk_steps + m),
         library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
@@ -733,8 +804,8 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         name="K4 one_row", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/pipeline.py:53",
         ms=time_ms(lambda: one_row(fm, mat, lens2, seeds), device, 20),
-        plain_ms=time_ms(lambda: one_row_plain(fm, mat, lens2, seeds),
-                         device, 5),
+        plain_ms=time_once(lambda: one_row_plain(fm, mat, lens2, seeds),
+                           device)[1],
         **bounds(index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat,
                                       lens2, seeds) + 24 * n,
                  2 * lf_steps + k4_walk, k4_walk, k4_words,
@@ -828,7 +899,7 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
 DFS_READS = 16384
 DFS_L = 40                     # the row width of 36 bp reads (_len_bucket)
 THIN_READS = 4096
-THIN_STEPS = 4000
+THIN_STEPS = 2000
 
 
 def time_once(fn, device):
@@ -946,8 +1017,11 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
     c0 = torch.zeros(B, dtype=torch.int32, device=device)
     kw = dict(n_k=n_k, m_max=m_max, max_steps=max_steps)
     out, transitions = dfs.run_machine(pair, jd, seeds, c0, **kw)
+    # timed, the one plain run also counts the work the bounds price
+    work = {} if timed else None
     (pout, iters), k7_plain_ms = time_once(
-        lambda: dfs.run_machine_plain(pair, jd, seeds, c0, **kw), device)
+        lambda: dfs.run_machine_plain(pair, jd, seeds, c0, work=work, **kw),
+        device)
     done = pout["mode"] == dfs.M_DONE
     err7 = max_abs_err([(a[done], pout[k][done]) for k, a in out.items()
                         if k in dfs.OUT_KEYS])
@@ -983,10 +1057,6 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
                max_abs_err=max(err6, err7, err8))
     if not timed:
         return row, None
-    # the work the bounds price, counted by a second plain run (the
-    # count's own cost is kept out of k7_plain_ms)
-    work = {}
-    dfs.run_machine_plain(pair, jd, seeds, c0, work=work, **kw)
     row["work"] = work
     nbytes6 = _nbytes(*base, scal, qqp)
     nbytes7 = k7_bytes(work, qqp, seeds, c0, out)
@@ -1008,7 +1078,7 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
             replaces="bowtie_tpu/align/dfs_device.py:1484 (K5: :261, :303)",
             ms=time_ms(lambda: dfs.run_machine(pair, jd, seeds, c0, **kw),
                        device, 10),
-            plain_ms=k7_plain_ms,
+            plain_ms=k7_plain_ms, plain_with_work_count=True,
             **bounds(nbytes7, work["rank_codes"], work["walk_steps"],
                      work["word_codes"],
                      2 * work["rank_ends"] + 2 * work["walk_steps"]
@@ -1026,7 +1096,12 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
             library_ms=time_ms(lambda: hits3[slot < nh_eff[:, None]],
                                device, 20),
             library="hits[slot < nhits] (boolean index)",
-            max_abs_err=err8, rows=int(hits.shape[0]), bytes=nbytes8),
+            max_abs_err=err8, rows=int(hits.shape[0]), bytes=nbytes8,
+            launches_per_call=counted(lambda: dfs.pack_hits(out),
+                                      device)[1]["dfs_pack"],
+            host_syncs=host_syncs(lambda: dfs.pack_hits(out)),
+            library_host_syncs=host_syncs(
+                lambda: hits3[slot < nh_eff[:, None]])),
     }
     return row, stats
 
@@ -1146,7 +1221,7 @@ def records_of(path, names):
                 and (ln.startswith(b"@") or ln.split(b"\t", 1)[0] in names)]
 
 
-CPU_SLICE = 4000
+CPU_SLICE = 1000
 
 
 def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
@@ -1167,14 +1242,15 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
 
     def same_as_cpu(args, out):
         """The card's records of the first CPU_SLICE reads must be the
-        CPU's (plain versions) for those reads, byte for byte."""
+        CPU's (plain versions) for those reads, byte for byte.  -> (the
+        records compared, the CPU run's seconds)."""
         cpu_out = out + ".cpu"
-        run_cli(args + ["-x", base, head, cpu_out], cpu)
+        cpu_s = run_cli(args + ["-x", base, head, cpu_out], cpu)[0]
         want = records_of(cpu_out, head_names)
         got = records_of(out, head_names)
         require(got == want, f"cli {args}: card and CPU records of the "
                 f"first {CPU_SLICE} reads differ")
-        return len(want)
+        return len(want), cpu_s
 
     k1_args = ["-v", "0", "-k", "1"]
     out1 = os.path.join(work, "k1.txt")
@@ -1187,7 +1263,7 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
     missing = [nm for nm, e in zip(names, exact) if e and nm not in aligned1]
     require(not missing, f"{len(missing)} planted exact reads did not "
             f"align, e.g. {missing[:3]}")
-    cpu_lines1 = same_as_cpu(k1_args, out1)
+    cpu_lines1, cpu_s1 = same_as_cpu(k1_args, out1)
 
     a_args = ["-v", "0", "-a", "-m", "3", "-S", "--batch-size", "65536"]
     out2 = os.path.join(work, "a_m3.sam")
@@ -1198,7 +1274,7 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
             f"-a -m 3 run launched {launches2}")
     hits2, nrec2, nun2 = parse_sam(out2)
     check_hits(hits2, genome_chars, reads_by_name)
-    cpu_lines2 = same_as_cpu(a_args, out2)
+    cpu_lines2, cpu_s2 = same_as_cpu(a_args, out2)
 
     # the same alignment through the library on the dense-SA index
     aligner = ExactAligner(fm_sa, idx, KPolicy(khits=INF, mhits=3))
@@ -1220,12 +1296,12 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
     emit({"phase": "cli", "reads": n_reads, "gpu": gpu,
           "k1": {"wall_s": wall1, "reads_per_s": n_reads / wall1,
                  "hits": len(hits1), "launches": launches1,
-                 "cpu_equal_lines": cpu_lines1,
+                 "cpu_equal_lines": cpu_lines1, "cpu_slice_s": cpu_s1,
                  "summary": err1.strip().splitlines()},
           "a_m3_S": {"wall_s": wall2, "reads_per_s": n_reads / wall2,
                      "records": nrec2, "unaligned": nun2,
                      "hits": len(hits2), "launches": launches2,
-                     "cpu_equal_lines": cpu_lines2,
+                     "cpu_equal_lines": cpu_lines2, "cpu_slice_s": cpu_s2,
                      "summary": err2.strip().splitlines()},
           "a_m3_dense_sa_library": {"wall_s": wall3,
                                     "reads_per_s": n_reads / wall3,
@@ -1236,13 +1312,15 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
     return runs
 
 
-V_SLICE = 1000
+V_SLICE = 400
 # reads of the -v 0 and -v 1/2 CLI phases (cli, cli_v): cut from 200,000
 # when the -n phases came, to keep the script near half its time limit;
 # those of the -n CLI phase (cli_n) likewise when the best-first phases
-# came, and the CPU slices of cli_v and cli_n from 2,000 reads to 1,000
-CLI_READS = 100_000
-CLI_N_READS = 100_000
+# came, and the CPU slices of cli_v and cli_n from 2,000 reads to 1,000;
+# all the CLI phases' reads and pairs halved or so when a host slower
+# than earlier ones ran the whole script past 1,250 s
+CLI_READS = 50_000
+CLI_N_READS = 50_000
 
 
 def profiled(fn):
@@ -1653,7 +1731,9 @@ def best_case(name, al, reads, max_steps, device, genome_chars, timed):
                            device)
         return bd.run_machine_plain(al.pair, cfg, st, chunk=max_steps,
                                     work=work, **pkw)
-    (st, iters), k10_plain_ms = time_once(plain, device)
+    # timed, the one plain run also counts the work the bound prices
+    work = {} if timed else None
+    (st, iters), k10_plain_ms = time_once(lambda: plain(work), device)
     done = st["mode"] == bd.M_DONE
     ok = done & ~st["overflow"]
     require(bool((out["overflow"][done] == st["overflow"][done]).all()),
@@ -1694,10 +1774,6 @@ def best_case(name, al, reads, max_steps, device, genome_chars, timed):
                k10_plain_ms=k10_plain_ms, max_abs_err=max(err10, err11))
     if not timed:
         return row, None
-    # the work the bound prices, counted by a second plain run (the
-    # count's own cost is kept out of k10_plain_ms)
-    work = {}
-    plain(work)
     row["work"] = work
     nbytes10 = k10_bytes(work, host, L, out)
     nbytes11 = k11_bytes(out)
@@ -1711,7 +1787,7 @@ def best_case(name, al, reads, max_steps, device, genome_chars, timed):
             ms=time_ms(lambda: bd.run_machine(
                 al.pair, al.hostinit.cfg, host, seeds_d, max_steps=max_steps,
                 **kw), device, 5),
-            plain_ms=k10_plain_ms,
+            plain_ms=k10_plain_ms, plain_with_work_count=True,
             **bounds(nbytes10, work["rank_codes"], work["walk_steps"],
                      work["word_codes"],
                      2 * work["rank_ends"] + 2 * work["walk_steps"]
@@ -1762,8 +1838,8 @@ def phase_best(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw):
     return stats
 
 
-BEST_CLI_READS = 50_000
-BEST_SLICE = 400
+BEST_CLI_READS = 25_000
+BEST_SLICE = 160
 
 
 def check_verbose_mm(path, genome_chars):
@@ -1888,10 +1964,10 @@ PE_POLICIES = (
     ("-n 2 -k 1 (rec_cap 1, after phase 0), offRate 13",
      dict(mode="n", seed_mms=2), (1, INF), 1, True))
 K12_STRANDS = 1 << 21          # K12 timed beside K2, on as many strands
-CLI_PE_PAIRS = 20_000
+CLI_PE_PAIRS = 12_000            # one whole CLI batch and a part
 CLI_BATCH = 8192               # the CLI's --batch-size default
-PE_HOST_SLICE = 1000           # pairs held to the V1 host engine
-PE_P_SLICE = 2000              # pairs run with -p 4 and -p 1
+PE_HOST_SLICE = 400            # pairs held to the V1 host engine
+PE_P_SLICE = 800                # pairs run with -p 4 and -p 1
 NO_LIBRARY_K10R = ("n/a: no single PyTorch call records a best-first "
                    "search's ranges")
 NO_LIBRARY_K13 = "n/a: no single PyTorch call runs the V1 interleave"
@@ -1972,10 +2048,11 @@ def head_pairs(path1, path2, n, tag, work):
     return out
 
 
-def pe_case(name, al, pairs, cap, max_steps, device):
+def pe_case(name, al, pairs, cap, max_steps, device, work=None):
     """K10r on the recorder's fused lanes of `pairs`, held to its plain
     version on the card on every lane the plain version finished within
-    max_steps.  -> (row, the run's inputs and outputs)."""
+    max_steps; the plain run counts into `work` when given.  -> (row, the
+    run's inputs and outputs)."""
     a = al.record_inputs(pairs, cap)
     pair, cfg, host, seeds = a["args"]
     kw = dict(a["kw"], max_steps=max_steps, rec_cap=cap)
@@ -1992,7 +2069,7 @@ def pe_case(name, al, pairs, cap, max_steps, device):
                            kw["maxbts"], device)
         return bd.run_machine_plain(pair, cfg_t, st, chunk=max_steps,
                                     work=work, **pkw)
-    (st, iters), plain_ms = time_once(plain, device)
+    (st, iters), plain_ms = time_once(lambda: plain(work), device)
     done = st["mode"] == bd.M_DONE
     ok = done & ~st["overflow"]
     require(bool((out["overflow"][done] == st["overflow"][done]).all()),
@@ -2015,7 +2092,7 @@ def pe_case(name, al, pairs, cap, max_steps, device):
                capped_lanes=int(((nh > 0) & (last == 2)).sum()),
                plain_ms=plain_ms, max_abs_err=err)
     require(row["ranges"] > 0, f"pe {name}: no range recorded")
-    return row, (a, kw, out, plain)
+    return row, (a, kw, out)
 
 
 def k12_case(pair, mat, lens, efw, device):
@@ -2137,7 +2214,8 @@ def k13_case(name, al, pairs, device, timed):
     """K13 against its plain version on the card on round 1's streams of
     `pairs` (rec_cap 1 after phase 0, as align_batch records them): all
     12 outputs and each lane's iterations must be equal.  Timed: K13
-    median of 20, the plain version median of 5.  -> the case's row
+    median of 20, the plain version the one run it is held to.  -> the
+    case's row
     (with its bound from what the plain version counted)."""
     idxs = list(range(len(pairs)))
     s1 = fill_seed_caches([p[0] for p in pairs], al.global_seed)
@@ -2177,7 +2255,6 @@ def k13_case(name, al, pairs, device, timed):
         plain(work)
         row.update(
             ms=time_ms(lambda: ilv.run_ilv(al.pair, st0, S), device, 20),
-            plain_ms=time_ms(plain, device, 5),
             work=work, **k13_bounds(work, len(lanes), S))
     return row
 
@@ -2200,9 +2277,12 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
             *(thin if walk else (idx, idx_bw)), refs,
             KPolicy(khits=k, mhits=m), compact=walk, device=device, **akw)
         require((al.rec_cap == cap), f"pe {name}: rec_cap {al.rec_cap}")
-        row, (a, kw, out, plain) = pe_case(
+        # the timed policy's one plain run also counts the work the bound
+        # prices
+        work_c = {} if i == 0 else None
+        row, (a, kw, out) = pe_case(
             name, al, pairs[:THIN_PE_PAIRS] if walk else pairs, cap,
-            THIN_PE_STEPS if walk else PE_STEPS, device)
+            THIN_PE_STEPS if walk else PE_STEPS, device, work_c)
         row["wall_s"] = time.time() - t
         cases[name] = row
         if walk:
@@ -2232,8 +2312,6 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
             source=SOURCE, replaces="bowtie_tpu/align/pe_device.py:37",
             **main, library_ms=None, library=NO_LIBRARY, match=True,
             at_strands=big)
-        work_c = {}
-        plain(work_c)
         row["work"] = work_c
         nbytes = k10_bytes(work_c, a["args"][2], kw["L"], out)
         stats["K10r"] = dict(
@@ -2243,7 +2321,7 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
                      "record=True), :1064 _record_range, :854-866 "
                      "_cfgF/_cfgO",
             ms=time_ms(lambda: bd.run_machine(*a["args"], **kw), device, 5),
-            plain_ms=row["plain_ms"],
+            plain_ms=row["plain_ms"], plain_with_work_count=True,
             **bounds(nbytes, work_c["rank_codes"], work_c["walk_steps"],
                      work_c["word_codes"],
                      2 * work_c["rank_ends"] + 2 * work_c["walk_steps"]
@@ -2277,29 +2355,22 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
     return stats
 
 
-PEV2_PAIRS = 2048              # K14 timed on as many pairs (one lane each)
 PEV2_SMALL_PAIRS = 256         # the -n 3 and walk-left cases
 PEV2_STEPS = 2000              # the plain version's step budget, timed
-# cases; BUDGET_STEPS in the two others (the budget cases), whose lanes
+# case (cli_pe's first --best batch); BUDGET_STEPS in phase pev2's two
+# (the budget cases), whose lanes
 # past it are all held to the V2 host engine: a plain iteration of K14
 # costs about the same whatever the lane count, so the budget, not the
 # pairs, sets the phase's time
-BUDGET_STEPS = 600
-# a timed K14 case's numbers in the kernels line
-K14_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_ms", "ops_ms",
-            "sector_ms", "bytes", "int_ops", "popc_ops", "ranks",
-            "rank_ends", "max_abs_err", "lanes", "plain_iterations",
-            "budget_lanes", "policy")
+BUDGET_STEPS = 300
 NO_LIBRARY_K14 = ("n/a: no single PyTorch call records a best-first "
                   "search's merged stream")
 # (name, aligner kwargs, rec_cap, thinned pair, pairs, plain budget)
 PEV2_POLICIES = (
-    ("-n 2 --best (12/28, rec_cap 8)", dict(mode="n", seed_mms=2), 8,
-     False, PEV2_PAIRS, PEV2_STEPS),
-    ("-n 3 --best (16/48, uncapped), plain budget 600",
+    ("-n 3 --best (16/48, uncapped), plain budget 300",
      dict(mode="n", seed_mms=3), None, False, PEV2_SMALL_PAIRS,
      BUDGET_STEPS),
-    ("-n 2 --best (rec_cap 8), offRate 13, plain budget 600",
+    ("-n 2 --best (rec_cap 8), offRate 13, plain budget 300",
      dict(mode="n", seed_mms=2), 8, True, PEV2_SMALL_PAIRS, BUDGET_STEPS))
 
 
@@ -2421,41 +2492,36 @@ def pev2_case(name, al, pairs, cap, max_steps, device, timed):
 
 def phase_pev2(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
                refs):
-    """K14 against its plain version on the card: -n 2 --best on
-    PEV2_PAIRS pairs of the 4.6 Mbp index (timed), -n 3 --best and the
-    offRate-13 pair on PEV2_SMALL_PAIRS.  These two are the budget case:
-    the plain version stops at BUDGET_STEPS iterations, and every lane
-    past it that K14 finished is held, replayed, to the V2 host engine.
-    -> the kernels-line entry (cli_pe's K14 case on the CLI's first batch
-    takes its place there, these numbers beside it)."""
-    pairs = pe_pairs(rng, genome, rep_starts, seg_len, PEV2_PAIRS,
+    """K14 against its plain version on the card, the budget case: -n 3
+    --best and -n 2 --best on the offRate-13 pair on PEV2_SMALL_PAIRS of
+    the 4.6 Mbp index.  The plain version stops at BUDGET_STEPS
+    iterations, and every lane past it that K14 finished is held,
+    replayed, to the V2 host engine.  K14 under -n 2 --best on whole
+    lanes, timed, is cli_pe's case on the CLI's first batch."""
+    pairs = pe_pairs(rng, genome, rep_starts, seg_len, PEV2_SMALL_PAIRS,
                      os.path.join(work, "pev2_1.fq"),
                      os.path.join(work, "pev2_2.fq"))
     thin = (thinned_index(idx), thinned_index(idx_bw))
-    cases, stats = {}, None
-    for i, (name, akw, cap, walk, n, steps) in enumerate(PEV2_POLICIES):
+    cases = {}
+    for name, akw, cap, walk, n, steps in PEV2_POLICIES:
         t = time.time()
         al = DevicePairedV2Aligner(
             *(thin if walk else (idx, idx_bw)), refs, KPolicy(),
             compact=walk, device=device, better=True, **akw)
         require(al.rec_cap == 8, f"pev2 {name}: rec_cap {al.rec_cap}")
-        cases[name], st = pev2_case(name, al, pairs[:n], cap, steps, device,
-                                    timed=i == 0)
+        cases[name], _ = pev2_case(name, al, pairs[:n], cap, steps, device,
+                                   timed=False)
         cases[name]["wall_s"] = time.time() - t
-        stats = stats or st
-    walk = cases[PEV2_POLICIES[2][0]]
+    walk = cases[PEV2_POLICIES[1][0]]
     require(not walk["dense"] and walk["off_rate"] == 13,
             "the walk case ran on a dense pair")
-    require(cases[PEV2_POLICIES[1][0]]["nd"] == 16
-            and cases[PEV2_POLICIES[1][0]]["ndt"] == 48,
+    require(cases[PEV2_POLICIES[0][0]]["nd"] == 16
+            and cases[PEV2_POLICIES[0][0]]["ndt"] == 48,
             "the -n 3 case is not the 16/48 DAG")
-    require(cases[PEV2_POLICIES[0][0]]["capped_lanes"] > 0,
-            "pev2: no lane reached rec_cap 8")
     require(sum(c["host_checked_pairs"] for c in cases.values()) > 0,
             "pev2: no lane past the plain budget was held to the host")
-    emit({"phase": "pev2", "cases": cases, "ms": stats["ms"],
+    emit({"phase": "pev2", "cases": cases,
           "local_bytes": bd.machine_local_bytes()})
-    return {"K14": stats}
 
 
 PEV2_TAG = "-1/-2 --best (-n 2 -k 1 --fr -X 250: the V2 engine, K14)"
@@ -2499,6 +2565,9 @@ def cli_pev2_run(work, device, base, m1, m2, genome_chars):
     require(batch_row["lanes"] == CLI_BATCH,
             f"cli --best: K14 took {batch_row['lanes']} of the batch's "
             f"{CLI_BATCH} pairs")
+    require(batch_row["capped_lanes"] > 0,
+            f"cli --best: no lane of the first batch reached rec_cap "
+            f"{al.rec_cap}")
     return {"pairs": CLI_PE_PAIRS, "wall_s": wall,
             "pairs_per_s": CLI_PE_PAIRS / wall, "device_busy_s": busy,
             "device_busy_share": busy / wall, "launches": launches,
@@ -2778,7 +2847,7 @@ def phase_mesh(work, device, idx, idx_bw, fm, strands, devices=None):
 
 
 DIST_RANKS = 2
-DIST_SKIP, DIST_UPTO = 1000, 60000
+DIST_SKIP, DIST_UPTO = 1000, 30000
 
 
 def launch_ranks(cmd, ranks):
@@ -2814,7 +2883,7 @@ def launch_ranks(cmd, ranks):
 def phase_cli_dist(work, device, base, gpu, ranks=DIST_RANKS):
     """The launcher: `ranks` ranks (rank k on cuda:{k mod the device
     count}: all on the one card by default), on phase cli_n's
-    100,000-read file.  Each merged output (hits, --un, rank 0's stderr)
+    50,000-read file.  Each merged output (hits, --un, rank 0's stderr)
     must equal, byte for byte, what one process writes for the same
     command (cli_n's own run for bowtie's default command, where there
     is one); the one process's output is moved aside first, so that both
@@ -2902,9 +2971,9 @@ def main() -> int:
     seg_len = 2000
     genome, rep_starts, base, idx, fm, fm_sa = timed(
         "index", phase_index, rng, work, device, 4_600_000, 64, seg_len)
-    stats, runs = timed("build", phase_build,
-                        np.random.default_rng(args.seed + 1), work, device,
-                        genome, base, gpu)
+    stats, runs, check_sais = timed(
+        "build", phase_build, np.random.default_rng(args.seed + 1), work,
+        device, genome, base, gpu)
     k_stats, k_launches, strands = timed(
         "kernels", phase_kernels, rng, device, genome, rep_starts, seg_len,
         fm, fm_sa, 1 << 20)
@@ -2914,6 +2983,7 @@ def main() -> int:
     golden = (GoldenFM(idx), GoldenFM(idx_bw))      # the host oracle's
     stats.update(timed("dfs", phase_dfs, rng, work, device, genome,
                        rep_starts, seg_len, idx, idx_bw, golden))
+    timed("build_sais", check_sais)
     runs.update(timed("cli", phase_cli, rng, work, device, genome,
                       rep_starts, seg_len, base, idx, fm_sa, CLI_READS, gpu))
     runs.update(timed("cli_v", phase_cli_v, rng, work, device, genome,
@@ -2934,9 +3004,8 @@ def main() -> int:
                        genome, rep_starts, seg_len, idx, idx_bw, refs))
     # its own generator (seed + 3): every later phase reads what it read
     # before this phase existed
-    stats.update(timed("pev2", phase_pev2,
-                       np.random.default_rng(args.seed + 3), work, device,
-                       genome, rep_starts, seg_len, idx, idx_bw, refs))
+    timed("pev2", phase_pev2, np.random.default_rng(args.seed + 3), work,
+          device, genome, rep_starts, seg_len, idx, idx_bw, refs)
     pe_runs, k13_batch, k14_batch = timed(
         "cli_pe", phase_cli_pe, rng, work, device, base, genome, rep_starts,
         seg_len, gpu)
@@ -2950,11 +3019,8 @@ def main() -> int:
     k13["at_512_pairs"] = {k: k13[k] for k in K13_KEYS}
     k13.update({k: k13_batch[k] for k in K13_KEYS},
                policy="-1/-2 default, the CLI's first batch (round 1)")
-    # K14's likewise: the CLI's first --best batch, the 2,048 pairs of
-    # phase pev2 beside it
-    k14 = stats["K14"]
-    k14["at_2048_pairs"] = {k: k14[k] for k in K14_KEYS}
-    k14.update({k: k14_batch[k] for k in K14_KEYS}, pairs=CLI_BATCH)
+    # K14's: the CLI's first --best batch
+    stats["K14"] = dict(k14_batch, pairs=CLI_BATCH)
     counter = {"K2": "exact_ranges", "K12": "exact_ranges_cat",
                "K3w": "resolve_rows_walk",
                "K3s": "resolve_rows_sa", "K4": "one_row",

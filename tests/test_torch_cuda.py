@@ -15,10 +15,12 @@ record mode, the V2 recorder's merged-mate DAG) under -v 1, -n 2 and
 -n 3, dense and walk-left; K13 (the V1
 interleave, chase and rescue of csrc/ilv.cu) on the recorder's streams,
 dense and walk-left, --fr and --ff; K16 (the
-prefix-doubling round of csrc/sa.cu) round for round, and the SA it builds
-against SA-IS; and the CLI on the card (-v 0/1/2/3, -n, --best, -M,
---sanity, --stats, paired input with -p, and bowtie-build --jax-sa) must
-write what it writes on the CPU.
+prefix-doubling round of csrc/sa.cu) round for round on texts of thousands
+of look-back tiles, at its tile edges, all-A and period 3, and on ranks
+under BIG = 2^31 - 1, and the SA it builds against SA-IS; K8 on synthetic
+machine outputs at its edges; and the CLI on the card (-v 0/1/2/3, -n,
+--best, -M, --sanity, --stats, paired input with -p, and bowtie-build
+--jax-sa) must write what it writes on the CPU.
 These tests need an NVIDIA GPU with nvcc and skip without one; on the
 card (where JAX, which tests/conftest.py imports, may be absent) run
 
@@ -595,8 +597,22 @@ def test_pe_cli_on_card_matches_cpu(card, tmp_path, args):
     assert outs[0][0]
 
 
+# csrc/sa.cu's tiles: 6,144 keys a digit pass takes, 4,096 a renumbering
+SA_PASS_TILE, SA_RENUMBER_TILE = 6144, 4096
+
+
 def _sa_text(kind):
     rng = np.random.default_rng(16)
+    if kind.startswith("edge"):         # n1 = n + 1 at a tile boundary
+        return rng.integers(0, 4, int(kind[4:]) - 1).astype(np.uint8)
+    if kind == "random_1m":             # thousands of look-back tiles
+        return rng.integers(0, 4, 1_000_000).astype(np.uint8)
+    if kind == "random_4m":
+        return rng.integers(0, 4, 4_000_000).astype(np.uint8)
+    if kind == "all_a_1m":              # every pass's keys in one bin
+        return np.zeros(1_000_000, np.uint8)
+    if kind == "period3_1m":            # long ties over many rounds
+        return np.tile(np.array([0, 1, 2], np.uint8), 333_334)[:1_000_000]
     if kind == "n1":
         return np.array([2], np.uint8)
     if kind == "empty":
@@ -612,8 +628,14 @@ def _sa_text(kind):
     return rng.integers(0, 4, 5000).astype(np.uint8)
 
 
+SA_EDGES = [f"edge{t + d}" for t in (SA_PASS_TILE, 3 * SA_PASS_TILE,
+                                     SA_RENUMBER_TILE)
+            for d in (-1, 0, 1)]
+
+
 @pytest.mark.parametrize("kind", ["n1", "empty", "small", "all_a",
-                                  "planted"])
+                                  "planted", "random_1m", "random_4m",
+                                  "all_a_1m", "period3_1m"] + SA_EDGES)
 def test_sa_round_matches_plain(card, kind):
     """K16 against its plain version on the card, round for round (nr,
     order, maxg), and the whole doubling SA against SA-IS."""
@@ -639,6 +661,83 @@ def test_sa_round_matches_plain(card, kind):
     np.testing.assert_array_equal(sa, tsa.suffix_array(codes))
     np.testing.assert_array_equal(
         tsa.suffix_array_doubling(codes), tsa.suffix_array(codes))
+
+
+@pytest.mark.parametrize("n1", [1, SA_PASS_TILE + 1, 3_000_000])
+def test_sa_round_big_ranks(card, n1):
+    """K16 on random ranks under BIG = 2^31 - 1 (tied in runs): 62-bit
+    keys, 8 digit passes, counts that need the 64-bit look-back word's
+    width; one launch a round."""
+    from bowtie_tpu_torch.build import sa as tsa
+    big = 2**31 - 1
+    rng = np.random.default_rng(n1)
+    r = rng.integers(1, big, n1).astype(np.int32)
+    r[1::3] = r[::3][:len(r[1::3])]
+    r = torch.from_numpy(r).cuda()
+    kernels.reset_launches()
+    for k in (1, 7, n1):
+        got = tsa.sa_round(r, k, big)
+        want = tsa.sa_round_plain(r, k, big)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sa_round"] == 3
+
+
+def _machine_outputs(B, kind, seed):
+    """Synthetic run_machine outputs on the card: random rows, counts
+    per `kind` (random with 20 % overflow; every lane overflowed; every
+    lane full; no partials)."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    rng = np.random.default_rng(seed)
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).cuda()
+    out = {"hits": words(B, td.H_MAX * td.HIT_W),
+           "part_n": words(B, td.P_MAX), "part_job": words(B, td.P_MAX),
+           "part_pos": words(B, 3 * td.P_MAX),
+           "part_refc": words(B, 3 * td.P_MAX)}
+    nh = rng.integers(0, td.H_MAX + 1, B)
+    npart = rng.integers(0, td.P_MAX + 1, B)
+    ovf = rng.random(B) < 0.2
+    if kind == "overflow":
+        ovf[:] = True
+    elif kind == "full":
+        nh[:], npart[:], ovf[:] = td.H_MAX, td.P_MAX, False
+    elif kind == "no_parts":
+        npart[:] = 0
+    out["nhits"] = torch.from_numpy(nh.astype(np.int32)).cuda()
+    out["npart"] = torch.from_numpy(npart.astype(np.int32)).cuda()
+    out["overflow"] = torch.from_numpy(ovf).cuda()
+    return out
+
+
+@pytest.mark.parametrize("B,kind", [
+    (1, "random"), (1, "full"), (1000, "overflow"), (1000, "full"),
+    (1000, "no_parts"), (129, "random"), (16384, "random"),
+    (200_000, "random")])
+def test_dfs_kernels_pack_edges(card, B, kind):
+    """K8 against its plain version on synthetic machine outputs: one
+    lane, every lane overflowed (no hit rows), every lane full, no
+    partials, lane counts off the 128-lane tile, and 200,000 lanes of
+    many look-back tiles; twice in a row (the second call finds the
+    scratch the first left), one dfs_pack launch a call."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    kernels.reset_launches()
+    for seed in (B, B + 1):
+        out = _machine_outputs(B, kind, seed)
+        got = td.pack_hits(out)
+        want = td.pack_hits_plain(out)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dfs_pack"] == 2
+    if kind == "overflow":
+        assert got[0].shape[0] == 0 and int(got[2].sum()) == 0
+    if kind == "full":
+        assert got[0].shape[0] == B * td.H_MAX
+        assert got[1].shape[0] == B * td.P_MAX
 
 
 def test_cli_build_jax_sa_on_card(card, tmp_path):
