@@ -24,10 +24,12 @@ plain PyTorch version (in this module) on CPU tensors:
                      launch and one host sync
 
 The CUDA kernel of K7 runs one thread per lane through that lane's
-transitions to M_DONE.  Its plain version is the lockstep translation of
-_machine_step (RETF, JOB, ADV x3, POP, REP, BR per iteration, the same
-gates), held array for array to the JAX run_machine, iteration count
-included.  A lane's sequence of transitions depends only on its own
+transitions to M_DONE, one warp a block (machine_shape), the lane's
+state in registers and shared memory; a pass of its loop applies the
+lane's transitions in a fixed order of modes (csrc/dfs.cu).  Its plain
+version is the lockstep translation of _machine_step (RETF, JOB, ADV
+x3, POP, REP, BR per iteration, the same gates), held array for array
+to the JAX run_machine, iteration count included.  A lane's sequence of transitions depends only on its own
 state, so both reach the same per-lane result.
 
 Modes of the per-lane state machine:
@@ -1093,6 +1095,62 @@ _OUT_SHAPES = dict(result=(), overflow=(), count=(), nhits=(),
                    part_refc=(P_MAX * 3,), rng=(), mode=(), steps=())
 
 
+# K7's launch shape (csrc/dfs.cu kMachineThreads, kOnchipL, lane_words):
+# one warp a block, so that the CLI's 8,192 lanes make 256 blocks over
+# the card's 132 SMs.  Every lane keeps its parents' frames in shared
+# memory; up to ONCHIP_L positions also each level's elims, its mask of
+# live positions and the job's by-depth row (the on-chip layout), and
+# beyond that they stay in global memory (the global layout).
+MACHINE_THREADS = 32
+ONCHIP_L = 64
+FRAME_WORDS = 26            # REGS less elsz and bspread
+SHARED_LIMIT = 48 * 1024    # a block's shared memory without opting in
+
+
+def lane_shared_bytes(L: int, onchip: bool) -> int:
+    """K7's shared bytes a lane (csrc/dfs.cu lane_words): the parents'
+    frames and eight pick words; on chip also each level's mask (two
+    words), the job's by-depth row and each level's elims."""
+    words = (S_MAX - 1) * FRAME_WORDS + 8
+    if onchip:
+        words += 2 * S_MAX + (3 * L + 3) // 4 + (S_MAX * L + 3) // 4
+    return 4 * words
+
+
+def machine_shape(B: int, L: int) -> dict:
+    """K7's launch for B lanes of row width L: the layout (on chip up to
+    ONCHIP_L, for rows of whole words), threads and blocks, and the
+    block's shared bytes."""
+    onchip = L <= ONCHIP_L and L % 4 == 0
+    shared = MACHINE_THREADS * lane_shared_bytes(L, onchip)
+    if shared > SHARED_LIMIT:
+        raise ValueError(f"K7 needs {shared} shared bytes a block at L={L}")
+    return dict(onchip=onchip, threads=MACHINE_THREADS,
+                blocks=-(-B // MACHINE_THREADS), shared=shared)
+
+
+def _check_machine(L: int) -> None:
+    """Raise unless csrc/dfs.cu's K7 launches the shape machine_shape
+    describes."""
+    so = kernels.lib()
+    if (so.bt_dfs_machine_threads() != MACHINE_THREADS
+            or so.bt_dfs_onchip_l() != ONCHIP_L
+            or any(so.bt_dfs_lane_bytes(L, oc) != lane_shared_bytes(L, oc)
+                   for oc in (0, 1))):
+        raise RuntimeError("csrc/dfs.cu and align/dfs_device.py disagree "
+                           "on K7's launch shape")
+
+
+def _with_a_job(jobs: dict) -> dict:
+    """No jobs (--nofw with --norc): a table of one invalid job ends
+    every lane at its first job load."""
+    scal, qqp = jobs["scal"], jobs["qqp"]
+    if scal.dim() == 3 and scal.shape[1] == 0:
+        return {"scal": scal.new_zeros((scal.shape[0], 1, NJF)),
+                "qqp": qqp.new_zeros((qqp.shape[0], 1, qqp.shape[2]))}
+    return jobs
+
+
 def run_machine(pair: FMPair, jobs: dict, seeds: torch.Tensor,
                 count0: torch.Tensor, *, n_k: int, m_max: int,
                 max_steps: int):
@@ -1103,21 +1161,33 @@ def run_machine(pair: FMPair, jobs: dict, seeds: torch.Tensor,
     gives them; the most iterations (plain) or transitions (kernel) any
     lane took, as a 0-dim tensor).
 
-    Launches csrc/dfs.cu's dfs_machine_kernel on CUDA tensors: one
-    thread per lane, each lane's budget 8 * max_steps transitions (see
-    the module docstring), pairs/elims in a per-lane [S_MAX, L] scratch
-    allocated here."""
-    scal, qqp = jobs["scal"], jobs["qqp"]
-    if scal.dim() == 3 and scal.shape[1] == 0:
-        # no jobs (--nofw with --norc): a table of one invalid job ends
-        # every lane at its first job load
-        scal = scal.new_zeros((scal.shape[0], 1, NJF))
-        qqp = qqp.new_zeros((qqp.shape[0], 1, qqp.shape[2]))
-        jobs = {"scal": scal, "qqp": qqp}
-    dev = pair.device
-    if kernels.all_on_cpu(scal, qqp, seeds, count0, device=dev):
+    Launches csrc/dfs.cu's dfs_machine_kernel on CUDA tensors
+    (run_machine_lanes); runs run_machine_plain on CPU tensors."""
+    jobs = _with_a_job(jobs)
+    if kernels.all_on_cpu(jobs["scal"], jobs["qqp"], seeds, count0,
+                          device=pair.device):
         return run_machine_plain(pair, jobs, seeds, count0, n_k=n_k,
                                  m_max=m_max, max_steps=max_steps)
+    out, steps = run_machine_lanes(pair, jobs, seeds, count0, n_k=n_k,
+                                   m_max=m_max, max_steps=max_steps)
+    return out, (steps.max() if steps.numel() else torch.tensor(0)).long()
+
+
+def run_machine_lanes(pair: FMPair, jobs: dict, seeds: torch.Tensor,
+                      count0: torch.Tensor, *, n_k: int, m_max: int,
+                      max_steps: int):
+    """K7 on CUDA tensors, as run_machine takes them: (outputs by
+    OUT_KEYS, each lane's transitions as int32 [B]).  One thread per
+    lane in machine_shape's blocks; each lane's budget 8 * max_steps
+    transitions (see the module docstring); the pairs rows in a per-lane
+    [S_MAX, L, 8] scratch allocated here, which no transition reads
+    before writing it (and elims beside it in the global layout)."""
+    jobs = _with_a_job(jobs)
+    scal, qqp = jobs["scal"], jobs["qqp"]
+    dev = pair.device
+    if kernels.all_on_cpu(scal, qqp, seeds, count0, device=dev):
+        raise ValueError("run_machine_lanes runs the kernel: CUDA tensors "
+                         "only (run_machine takes CPU tensors)")
     kernels.check(scal, "scal", torch.int32, 3, dev)
     kernels.check(qqp, "qqp", torch.int8, 3, dev)
     kernels.check(seeds, "seeds", torch.int64, 1, dev)
@@ -1128,12 +1198,15 @@ def run_machine(pair: FMPair, jobs: dict, seeds: torch.Tensor,
     if (nf != NJF or qqp.shape[:2] != (B, J) or qqp.shape[2] != 3 * L
             or seeds.shape[0] != B or count0.shape[0] != B):
         raise ValueError("scal, qqp, seeds and count0 disagree on shapes")
+    shape = machine_shape(B, L)
     out = {k: torch.empty((B,) + s, dtype=torch.int32, device=dev)
            for k, s in _OUT_SHAPES.items()}
-    pairs = torch.zeros((B, S_MAX, L, 8), dtype=torch.int32, device=dev)
-    elims = torch.zeros((B, S_MAX, L), dtype=torch.uint8, device=dev)
+    pairs = torch.empty((B, S_MAX, L, 8), dtype=torch.int32, device=dev)
+    elims = (None if shape["onchip"] else
+             torch.zeros((B, S_MAX, L), dtype=torch.uint8, device=dev))
     if B:
         _check_layout()
+        _check_machine(L)
         a = kernels.DfsArgs(
             fw=kernels.fm_view(pair.fw), bw=kernels.fm_view(pair.bw),
             rstarts=pair.rstarts.data_ptr(), nfrag=pair.nfrag,
@@ -1141,14 +1214,15 @@ def run_machine(pair: FMPair, jobs: dict, seeds: torch.Tensor,
             scal=scal.data_ptr(), qqp=qqp.data_ptr(),
             seeds=seeds.data_ptr(), count0=count0.data_ptr(), B=B, J=J, L=L,
             n_k=n_k, m_max=m_max, max_transitions=8 * max_steps,
-            pairs=pairs.data_ptr(), elims=elims.data_ptr(),
+            pairs=pairs.data_ptr(),
+            elims=None if elims is None else elims.data_ptr(),
             **{k: v.data_ptr() for k, v in out.items()})
         kernels.launch("dfs_machine", "bt_dfs_machine", ctypes.byref(a),
-                       device=dev)
+                       int(shape["onchip"]), device=dev)
     steps = out.pop("steps")
     out["overflow"] = out["overflow"] != 0
     out["rng"] = u32(out["rng"])
-    return out, (steps.max() if B else torch.tensor(0)).long()
+    return out, steps
 
 
 # ---------------------------------------------------------------------------

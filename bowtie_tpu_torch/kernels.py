@@ -141,8 +141,13 @@ _SIGNATURES = {
     # (fm, reads, lens, n, L, dense, top, bot, off, ok, stream)
     "bt_align_step": [_FM, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       _P, _P, _P, _P, _P],
-    # (args, stream)
-    "bt_dfs_machine": [ctypes.POINTER(DfsArgs), _P],
+    # (args, onchip, stream)
+    "bt_dfs_machine": [ctypes.POINTER(DfsArgs), ctypes.c_int, _P],
+    # () -> K7's threads a block; () -> the widest on-chip L
+    "bt_dfs_machine_threads": [],
+    "bt_dfs_onchip_l": [],
+    # (L, onchip) -> K7's shared bytes a lane
+    "bt_dfs_lane_bytes": [ctypes.c_int, ctypes.c_int],
     # (scal, codes, qual, plen, B, J, L, fc, out, qqp, stream)
     "bt_derive_rows": [_P, _P, _P, _P] + [ctypes.c_int] * 4 + [_P, _P, _P],
     # (hits, nhits, overflow, npart, part_n, part_job, part_pos,

@@ -39,7 +39,9 @@ Phases, each printing one JSON line:
              to its plain PyTorch version on the card and timed with CUDA
              events (median of 20 runs after warm-up; plain versions one
              run each, after the run they are held to; K3 dense's plain
-             version median of 5).  K3 walk and K4 are also held to their plain
+             version median of 5; K3 dense and torch.index_select timed
+             in turns, 20 runs each, medians and spreads).  K3 walk and
+             K4 are also held to their plain
              versions on the index with its SA sample thinned to offRate
              13, where most walks pass MAX_WALK and end with ok=False.
              K15 (align_step: K2 and K3 fused, the step parallel/mesh.py
@@ -71,15 +73,20 @@ Phases, each printing one JSON line:
              slots) on the dense pair, and for -v 1 -k 1 on 4,096 reads
              with the pair thinned to offRate 13 (walk-left), where K7 is
              held to the plain version on the lanes that finishes within
-             2,000 iterations, and on the lanes past that budget that K7
+             1,800 iterations, and on the lanes past that budget that K7
              finishes, to the host oracle (OracleAligner): the
              step-budget rule of align/dfs_device.py.  Every hit must
              equal its reference substring except at its reported
              mismatches.  The -v 2 -a -m 3 tables are timed; K7's and
              K8's bytes are those the run reads and writes, counted by
-             the plain versions (K7's timed plain run counts them); one K8 call's launches and host syncs
-             are counted (torch's sync debug mode), and the boolean
-             index's syncs.
+             the plain versions (K7's timed plain run counts them); one
+             K8 call's launches and host syncs are counted (torch's sync
+             debug mode), and the boolean index's syncs.  K7 is timed on
+             every case (median of 10) and on the first 8,192 lanes of
+             -v 2 -a -m 3 (the CLI's batch); each case's per-lane
+             transitions are summarised (max, p50, p99, mean, warp
+             efficiency: utils/kdiag.py lane_stats), and on -v 2 -a -m 3
+             the slowest lane and its warp's 32 lanes are timed alone.
 7. cli_v   - 50,000 such reads through the CLI on the card, -v 1 -k 1
              (verbose) and -v 2 -a -m 3 -S, each counted from zero and
              traced by torch.profiler for the device's busy share, with
@@ -95,7 +102,9 @@ Phases, each printing one JSON line:
              launches and every hit must equal its reference substring
              except at its reported mismatches.  K9 is timed under -n 2
              -k 1; its bytes are the lanes' scalars, their counted partial
-             rows and the [B, 36, NJF] table it writes (k9_bytes).
+             rows and the [B, 36, NJF] table it writes (k9_bytes).  Launch
+             B's K7 is timed under each policy (median of 10), its
+             per-lane transitions summarised.
 9. cli_n   - 50,000 such reads through the CLI on the card, bowtie's
              default command (no mode flag: -n 2 -l 28 -e 70 -k 1,
              verbose) and -n 2 -a -m 3 -S, each counted from zero and
@@ -213,7 +222,8 @@ Phases, each printing one JSON line:
              card: not a scaling figure).
 
 Phase device also prints the local memory per thread of K10's two
-instantiations (8/24 drivers: K10, K10r; 16/48: K14).  Then the
+instantiations (8/24 drivers: K10, K10r; 16/48: K14) and ptxas's lines
+about K7's two layouts (stack frame, spills, registers).  Then the
 {"kernels": [...]} line (launches: the CLI runs, cli build included; K3
 dense's library-run launches beside its 0; K15's and the K3 remainder's,
 which no CLI path runs, phases kernels' and mesh's), the seconds of
@@ -282,6 +292,7 @@ from bowtie_tpu_torch.parallel import dfs_mesh  # noqa: E402
 from bowtie_tpu_torch.parallel.mesh import (  # noqa: E402
     align_step, align_step_plain, make_mesh, replicate_index,
     shard_reads, sharded_align_step)
+from bowtie_tpu_torch.utils.kdiag import lane_stats, ptxas_entry  # noqa: E402
 from bowtie_tpu_torch.utils.rng import fill_seed_caches  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -425,6 +436,23 @@ def time_ms(fn, device, iters: int, warmup: int = 2) -> float:
             fn()
             times.append(1e3 * (time.perf_counter() - t))
     return statistics.median(times)
+
+
+def time_alternate(fns, device, runs: int, warmup: int = 2) -> list:
+    """Each of fns timed `runs` times in turns (fns[0], fns[1], ...,
+    fns[0], ...), as time_ms times one run; -> one list of ms per fn."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    times = [[] for _ in fns]
+    for _ in range(runs):
+        for fn, ts in zip(fns, times):
+            ts.append(time_ms(fn, device, 1, warmup=0))
+    return times
+
+
+def spread(ts) -> dict:
+    return dict(median=statistics.median(ts), min=min(ts), max=max(ts))
 
 
 def sync(device) -> None:
@@ -781,15 +809,20 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
     err = max_abs_err([(soff, psoff), (sok, psok), (soff, off)])
     require(err == 0, f"K3 (dense SA) disagrees by {err}")
     sa_sectors = int(torch.unique(rows >> 3).numel())   # 8 entries/sector
+    # the kernel and the library call timed in turns, 20 runs each
+    k3s_t, lib_t = time_alternate(
+        [lambda: resolve_rows(fm_sa, rows),
+         lambda: torch.index_select(fm_sa.sa, 0, rows)], device, 20)
     out["K3s"] = dict(
         name="K3 resolve_rows (dense SA)", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/exact.py:99",
-        ms=time_ms(lambda: resolve_rows(fm_sa, rows), device, 20),
+        ms=statistics.median(k3s_t),
         plain_ms=time_ms(lambda: resolve_rows_plain(fm_sa, rows), device, 5),
         **bounds(SECTOR * sa_sectors + 8 * m + 9 * m, 0, 0, 0, m),
-        library_ms=time_ms(lambda: torch.index_select(fm_sa.sa, 0, rows),
-                           device, 20),
+        library_ms=statistics.median(lib_t),
         library="torch.index_select(sa, 0, rows)",
+        alternating_runs=20, ms_spread=spread(k3s_t),
+        library_ms_spread=spread(lib_t),
         max_abs_err=err, match=True, rows=m)
 
     # K4
@@ -899,7 +932,7 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
 DFS_READS = 16384
 DFS_L = 40                     # the row width of 36 bp reads (_len_bucket)
 THIN_READS = 4096
-THIN_STEPS = 2000
+THIN_STEPS = 1800
 
 
 def time_once(fn, device):
@@ -918,6 +951,33 @@ def time_once(fn, device):
     b.record()
     b.synchronize()
     return res, a.elapsed_time(b)
+
+
+def k7_ptxas() -> list:
+    """ptxas's lines about K7 (kernels.build keeps its report)."""
+    with open(os.path.join(ROOT, "bowtie_tpu_torch", "csrc", "build",
+                           "ptxas.txt")) as f:
+        return ptxas_entry(f.read(), "dfs_machine")
+
+
+def k7_diag(pair, jd, seeds, c0, kw, steps, device, full=True) -> dict:
+    """K7's launch against its lanes (utils/kdiag.py lane_stats of the
+    per-lane transitions it wrote), with, when `full`, the slowest lane
+    alone and its warp's 32 lanes alone, each timed as the launch is
+    (median of 5)."""
+    st = lane_stats(steps.cpu().numpy())
+    if not full:
+        return st
+
+    def lanes(lo, hi):
+        sub = ({k: v[lo:hi].contiguous() for k, v in jd.items()},
+               seeds[lo:hi].contiguous(), c0[lo:hi].contiguous())
+        return time_ms(lambda: dfs.run_machine(pair, *sub, **kw), device, 5)
+
+    b, w = st["slowest_lane"], st["slowest_warp"]
+    st.update(slowest_lane_ms=lanes(b, b + 1),
+              slowest_warp_ms=lanes(w, min(w + 32, len(steps))))
+    return st
 
 
 def thinned_index(idx):
@@ -1016,7 +1076,8 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
         fill_seed_caches(reads, 0).astype(np.int64)).to(device)
     c0 = torch.zeros(B, dtype=torch.int32, device=device)
     kw = dict(n_k=n_k, m_max=m_max, max_steps=max_steps)
-    out, transitions = dfs.run_machine(pair, jd, seeds, c0, **kw)
+    out, steps = dfs.run_machine_lanes(pair, jd, seeds, c0, **kw)
+    transitions = steps.max()
     # timed, the one plain run also counts the work the bounds price
     work = {} if timed else None
     (pout, iters), k7_plain_ms = time_once(
@@ -1054,9 +1115,15 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
                hits=len(decoded),
                hits_with_mismatches=sum(1 for h in decoded if h.mms),
                k6_plain_ms=k6_plain_ms, k7_plain_ms=k7_plain_ms,
-               max_abs_err=max(err6, err7, err8))
+               max_abs_err=max(err6, err7, err8),
+               k7_ms=time_ms(lambda: dfs.run_machine(pair, jd, seeds, c0,
+                                                     **kw), device, 10),
+               k7_lanes=k7_diag(pair, jd, seeds, c0, kw, steps, device,
+                                full=timed))
     if not timed:
         return row, None
+    half = ({k: v[:B // 2].contiguous() for k, v in jd.items()},
+            seeds[:B // 2].contiguous(), c0[:B // 2].contiguous())
     row["work"] = work
     nbytes6 = _nbytes(*base, scal, qqp)
     nbytes7 = k7_bytes(work, qqp, seeds, c0, out)
@@ -1076,8 +1143,7 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
             name="K7 dfs_machine (K5 rank4/lf4pair inlined)", route="cuda",
             source=DFS_SOURCE,
             replaces="bowtie_tpu/align/dfs_device.py:1484 (K5: :261, :303)",
-            ms=time_ms(lambda: dfs.run_machine(pair, jd, seeds, c0, **kw),
-                       device, 10),
+            ms=row["k7_ms"],
             plain_ms=k7_plain_ms, plain_with_work_count=True,
             **bounds(nbytes7, work["rank_codes"], work["walk_steps"],
                      work["word_codes"],
@@ -1085,7 +1151,10 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
                      + work["sa_loads"]),
             library_ms=None, library=NO_LIBRARY_K7, max_abs_err=err7,
             lanes=B, rank_ends=work["rank_ends"],
-            sa_loads=work["sa_loads"], bytes=nbytes7),
+            sa_loads=work["sa_loads"], bytes=nbytes7,
+            ms_at_half_lanes=time_ms(
+                lambda: dfs.run_machine(pair, *half, **kw), device, 10),
+            transitions=row["k7_lanes"], ptxas=k7_ptxas()),
         "K8": dict(
             name="K8 dfs_pack", route="cuda", source=DFS_SOURCE,
             replaces="bowtie_tpu/align/dfs_device.py:1953",
@@ -1137,6 +1206,7 @@ def phase_dfs(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw,
             and walk["oracle_checked_lanes"] > 0,
             "offRate 13: want some lanes past the plain budget, not all, "
             "and some of them finished by K7")
+    stats["K7"]["ms_by_case"] = {k: c["k7_ms"] for k, c in cases.items()}
     emit({"phase": "dfs", "cases": cases,
           "ms": {k: v["ms"] for k, v in stats.items()}})
     return stats
@@ -1467,8 +1537,9 @@ def n_case(name, pair, reads, n, s, qt, maq, n_k, m_max, device,
     require(err9 == 0, f"{name}: K9 disagrees with its plain version")
     scal6, qqp6 = dfs.derive_rows(scal_b, *base, fc)
     jb = {"scal": scal6, "qqp": qqp6}
-    out_b, transitions = dfs.run_machine(pair, jb, seeds, out_a["count"],
-                                         **kw)
+    out_b, steps_b = dfs.run_machine_lanes(pair, jb, seeds, out_a["count"],
+                                           **kw)
+    transitions = steps_b.max()
     (pout_b, iters), k7_plain_ms = time_once(
         lambda: dfs.run_machine_plain(pair, jb, seeds, out_a["count"], **kw),
         device)
@@ -1503,7 +1574,10 @@ def n_case(name, pair, reads, n, s, qt, maq, n_k, m_max, device,
                plain_b_iterations=int(iters),
                kernel_b_max_transitions=int(transitions),
                k9_plain_ms=k9_plain_ms, k7_b_plain_ms=k7_plain_ms,
-               max_abs_err=max(err9, err7))
+               max_abs_err=max(err9, err7),
+               k7_b_ms=time_ms(lambda: dfs.run_machine(
+                   pair, jb, seeds, out_a["count"], **kw), device, 10),
+               k7_b_lanes=lane_stats(steps_b.cpu().numpy()))
     nbytes9 = k9_bytes(out_a, gated, base[2], scal_b)
     stat = dict(
         name="K9 derive_b_jobs", route="cuda", source=DFS_SOURCE,
@@ -1534,7 +1608,7 @@ def phase_n(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw):
     require(all(c["b_jobs_premut"] > 0 for c in cases.values()),
             "a policy derived no extension job")
     emit({"phase": "n", "cases": cases, "ms": {"K9": stat["ms"]}})
-    return {"K9": stat}
+    return {"K9": stat}, {k: c["k7_b_ms"] for k, c in cases.items()}
 
 
 GOLD = os.path.join(ROOT, "tests", "golden", "small_index", "small_oracle")
@@ -2959,7 +3033,9 @@ def main() -> int:
           # the local memory per thread of K10's two instantiations
           # (K10/K10r: 8/24 drivers; K14: 16/48), reserved for every
           # resident thread
-          "best_machine_local_bytes": bd.machine_local_bytes()})
+          "best_machine_local_bytes": bd.machine_local_bytes(),
+          # K7's stack frame, spills and registers, both layouts
+          "dfs_machine_ptxas": k7_ptxas()})
     phase_s = {}
 
     def timed(name, fn, *a):
@@ -2989,8 +3065,10 @@ def main() -> int:
     runs.update(timed("cli_v", phase_cli_v, rng, work, device, genome,
                       rep_starts, seg_len, base, idx, idx_bw, golden,
                       CLI_READS, gpu))
-    stats.update(timed("n", phase_n, rng, work, device, genome, rep_starts,
-                       seg_len, idx, idx_bw))
+    n_stats, k7_b_ms = timed("n", phase_n, rng, work, device, genome,
+                             rep_starts, seg_len, idx, idx_bw)
+    stats.update(n_stats)
+    stats["K7"]["launch_b_ms"] = k7_b_ms
     runs.update(timed("cli_n", phase_cli_n, rng, work, device, base, idx,
                       idx_bw, golden, genome, rep_starts, seg_len,
                       CLI_N_READS, gpu))

@@ -7,7 +7,10 @@ two-entry mesh on one card; K12 (K2
 with a per-lane choice of the forward or the mirror index); K6, K7 and
 K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
 walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
-derives; K10 and K11 (the best-first machine) under -v and seeded
+derives; K7 at the edges of its launch shape and layouts (lane counts
+around the warp, every lane overflowing H_MAX, S_MAX or P_MAX, a long
+walk-left lane, a budget that stops lanes mid-search, launch B with
+launch A's counts, L = 128, two mesh shards); K10 and K11 (the best-first machine) under -v and seeded
 policies, dense and walk-left; K10r (its record mode, the paired
 recorder's fused fw-DAG + rc-DAG run) capped and uncapped, and at rec_cap
 1 on the lanes the recorder's phase 0 (K12) leaves; K14 (its paired
@@ -752,3 +755,229 @@ def test_cli_build_jax_sa_on_card(card, tmp_path):
                 ".rev.2.ebwt"):
         assert ((tmp_path / ("j" + ext)).read_bytes()
                 == open(BASE + ext, "rb").read()), ext
+
+
+# K7 at the edges of its launch shape and layouts (csrc/dfs.cu: one warp
+# a block, lane state and scan data in shared memory up to L = 64, the
+# global layout beyond): lane counts around the warp, every lane
+# overflowing H_MAX, S_MAX or P_MAX, one long walk-left lane among short
+# ones, a budget that stops lanes mid-search, launch B with the counts of
+# launch A, 100 bp reads (L = 128) and two mesh shards; each held to the
+# plain version on every lane that finished within its budget.
+
+@pytest.fixture(scope="module")
+def k7_genome(tmp_path_factory):
+    """A seeded 200 kb genome with 64 copies of a 2 kb segment, indexed
+    at bowtie-build's defaults; its fw/mirror pair dense and thinned to
+    offRate 9 (walks of up to 512 steps)."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.build.builder import build_index
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(3)
+    g = rng.integers(0, 4, 200_000).astype(np.uint8)
+    seg = rng.integers(0, 4, 2000).astype(np.uint8)
+    starts = np.arange(64) * 3125 + rng.integers(0, 1000, 64)
+    for s in starts:
+        g[s:s + 2000] = seg
+    base = str(tmp_path_factory.mktemp("k7") / "rep")
+    build_index([g], ["rep"], base, off_rate=5, ftab_chars=10)
+    idx, idx_bw = read_ebwt(base), read_ebwt(base + ".rev")
+    dense = td.build_fmpair(idx, idx_bw, "cuda", dense_sa=True)
+    thin = td.build_fmpair(idx.with_off_rate(9), idx_bw.with_off_rate(9),
+                           "cuda", dense_sa=False)
+    return g, starts, dense, thin
+
+
+def _k7_reads(path, rows):
+    from bowtie_tpu_torch.io.readers import ReadSource
+    path.write_text("".join(
+        f"@r{i}\n{''.join('ACGTN'[c] for c in r)}\n+\n"
+        + "".join(chr(35 + (7 * i + 3 * j) % 39) for j in range(len(r)))
+        + "\n" for i, r in enumerate(rows)))
+    return list(ReadSource([str(path)]).records())
+
+
+def _k7_mix(g, starts, n, seed, length=36):
+    """n reads: exact, one or two mismatches, of the repeat, random."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, len(g) - length, n)
+    rep = rng.random(n) < 0.1
+    pos[rep] = starts[rng.integers(0, 64, rep.sum())] + rng.integers(
+        0, 2000 - length, rep.sum())
+    rows = g[pos[:, None] + np.arange(length)].copy()
+    k = np.arange(n)
+    for m in range(2):
+        sel = k % (3 + m) == 1
+        col = rng.integers(0, length, n)
+        rows[sel, col[sel]] = (rows[sel, col[sel]] + 1 + m) % 4
+    rnd = rng.random(n) < 0.1
+    rows[rnd] = rng.integers(0, 4, (rnd.sum(), length))
+    return rows
+
+
+def _k7_jobs(pair, reads, v, L, **fields):
+    """-v job rows for `reads`, with each named field set on every valid
+    job (crafted tables), derived on the card."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.align import dfs_jobs as tj
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    jobs, _ = tj.build_v_jobs_vec(reads, v, False, False, L)
+    for f, val in fields.items():
+        jobs[f] = np.where(jobs["valid"] > 0, val, jobs[f]).astype(
+            jobs[f].dtype)
+    dev = td.upload_jobs(jobs, pair.ftab_chars, "cuda")
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).cuda()
+    return dev, seeds, torch.zeros(len(reads), dtype=torch.int32,
+                                   device="cuda")
+
+
+def _k7_hold(pair, jobs, seeds, c0, n_k, m_max, max_steps):
+    """K7 against the plain version on every lane the plain version
+    finished; -> (K7's outputs, the plain version's done mask)."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    kernels.reset_launches()
+    out, steps = td.run_machine_lanes(pair, jobs, seeds, c0, n_k=n_k,
+                                      m_max=m_max, max_steps=max_steps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dfs_machine"] == 1
+    pout, _ = td.run_machine_plain(pair, jobs, seeds, c0, n_k=n_k,
+                                   m_max=m_max, max_steps=max_steps)
+    done = pout["mode"] == td.M_DONE
+    for k in td.OUT_KEYS:
+        assert torch.equal(out[k][done], pout[k][done]), k
+    assert int(steps.max()) <= 8 * max_steps
+    return out, done
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 129, 8193])
+def test_k7_lane_counts(card, k7_genome, tmp_path, B):
+    from bowtie_tpu_torch.align import dfs_device as td
+    g, starts, dense, _thin = k7_genome
+    reads = _k7_reads(tmp_path / "r.fq", _k7_mix(g, starts, B, B))
+    out, done = _k7_hold(dense, *_k7_jobs(dense, reads, 2, 40), td.INF32,
+                         3, 20000)
+    assert bool(done.all()) and int(out["nhits"].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["h_max", "s_max", "p_max"])
+def test_k7_every_lane_overflows(card, k7_genome, tmp_path, case):
+    """Every lane overflows one bound: repeat reads under -a (H_MAX);
+    random reads with every position revisitable at every level
+    (S_MAX); 10-base queries of random reads, every position
+    revisitable, reporting partials of up to 2 mismatches (P_MAX)."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    g, starts, dense, _thin = k7_genome
+    rng = np.random.default_rng(4)
+    if case == "h_max":
+        rows = np.stack([g[starts[0] + 100 + 7 * i:starts[0] + 136 + 7 * i]
+                         for i in range(64)])
+        fields = {}
+    else:
+        rows = rng.integers(0, 4, (64, 36)).astype(np.uint8)
+        fields = dict(unrev=0, rev1=0, rev2=0, rev3=0)
+        if case == "p_max":
+            fields.update(qlen=10, report_partials=3)
+    reads = _k7_reads(tmp_path / "r.fq", rows)
+    out, done = _k7_hold(dense, *_k7_jobs(dense, reads, 2, 40, **fields),
+                         td.INF32, td.INF32, 20000)
+    assert bool(done.all()) and bool(out["overflow"].all())
+    if case == "h_max":
+        assert bool((out["nhits"] == td.H_MAX).all())
+    if case == "p_max":
+        assert bool((out["npart"] == td.P_MAX).all())
+
+
+def test_k7_heavy_walk_lane(card, k7_genome, tmp_path):
+    """One repeat read under -a (64 rows, each a walk of up to 512 LF
+    steps) in a warp of random reads, on the thinned pair."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    g, starts, _dense, thin = k7_genome
+    rows = np.random.default_rng(5).integers(0, 4, (64, 36)).astype(
+        np.uint8)
+    rows[17] = g[starts[3] + 40:starts[3] + 76]
+    reads = _k7_reads(tmp_path / "r.fq", rows)
+    out, done = _k7_hold(thin, *_k7_jobs(thin, reads, 2, 40), td.INF32,
+                         td.INF32, 20000)
+    assert bool(done.all()) and int(out["nhits"][17]) == td.H_MAX
+
+
+def test_k7_budget_mid_search(card, k7_genome, tmp_path):
+    """A budget of 20 iterations (160 transitions) stops many lanes
+    mid-search: those the plain version finished agree, the rest are
+    flagged."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    g, starts, dense, _thin = k7_genome
+    reads = _k7_reads(tmp_path / "r.fq", _k7_mix(g, starts, 512, 6))
+    out, done = _k7_hold(dense, *_k7_jobs(dense, reads, 2, 40), td.INF32,
+                         3, 20)
+    stopped = out["mode"] != td.M_DONE
+    assert int(stopped.sum()) > 50 and bool(out["overflow"][stopped].all())
+    assert int(done.sum()) > 0
+
+
+def test_k7_launch_b_counts(card, k7_genome, tmp_path):
+    """-n 2 -a -m 5: launch B on the card starts each lane at launch A's
+    count (the repeat's lanes nonzero)."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.align import dfs_jobs as tj
+    from bowtie_tpu_torch.align import n_device as tn
+    from bowtie_tpu_torch.align.backtrack_oracle import QUAL_ROUNDS
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    g, starts, dense, _thin = k7_genome
+    reads = _k7_reads(tmp_path / "r.fq", _k7_mix(g, starts, 2048, 8))
+    jobs, _J, gated, jrc, _ = tj.build_n_jobs_a_vec(
+        reads, 2, 28, 70, 125, True, False, False, 40)
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).cuda()
+    c0 = torch.zeros(len(reads), dtype=torch.int32, device="cuda")
+    kw = dict(n_k=td.INF32, m_max=5, max_steps=60000)
+    out_a, _ = td.run_machine(dense, td.upload_jobs(jobs, 10, "cuda"), seeds,
+                              c0, **kw)
+    base = [torch.from_numpy(np.ascontiguousarray(jobs[k])).cuda()
+            for k in ("base_codes", "base_qual", "base_plen")]
+    scal = tn.derive_b_jobs(
+        out_a, torch.from_numpy(gated).cuda(), base[1], base[2],
+        torch.from_numpy(QUAL_ROUNDS.astype(np.int32)).cuda(), J=tn.J_B,
+        jrc=jrc, n=2, s=28, qt=70, maxbts=125, maq=True, norc=False,
+        nofw=False)
+    scal, qqp = td.derive_rows(scal, *base, 10)
+    assert int((out_a["count"] > 0).sum()) > 100
+    out_b, done = _k7_hold(dense, {"scal": scal, "qqp": qqp}, seeds,
+                           out_a["count"], td.INF32, 5, 60000)
+    assert bool(done.all())
+
+
+def test_k7_global_layout(card, k7_genome, tmp_path):
+    """100 bp reads: L = 128, past the on-chip layout."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    g, starts, dense, _thin = k7_genome
+    assert not td.machine_shape(512, 128)["onchip"]
+    reads = _k7_reads(tmp_path / "r.fq", _k7_mix(g, starts, 512, 9, 100))
+    out, done = _k7_hold(dense, *_k7_jobs(dense, reads, 2, 128), td.INF32,
+                         3, 20000)
+    assert bool(done.all()) and int(out["nhits"].sum()) > 0
+
+
+def test_k7_mesh_shards(card, k7_genome, tmp_path):
+    """run_sharded over two entries on the card equals one run_machine."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.align import dfs_jobs as tj
+    from bowtie_tpu_torch.parallel import dfs_mesh
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    g, starts, dense, _thin = k7_genome
+    reads = _k7_reads(tmp_path / "r.fq", _k7_mix(g, starts, 1000, 10))
+    jobs, _ = tj.build_v_jobs_vec(reads, 2, False, False, 40)
+    seeds = fill_seed_caches(reads, 0).astype(np.int64)
+    c0 = np.zeros(len(reads), np.int32)
+    kw = dict(n_k=td.INF32, m_max=3, max_steps=20000)
+    kernels.reset_launches()
+    got, _ = dfs_mesh.run_sharded(dense, jobs, seeds, c0,
+                                  [torch.device("cuda")] * 2, **kw)
+    assert kernels.LAUNCHES["dfs_machine"] == 2
+    want, _ = td.run_machine(dense, td.upload_jobs(jobs, 10, "cuda"),
+                             torch.from_numpy(seeds).cuda(),
+                             torch.from_numpy(c0).cuda(), **kw)
+    for k in td.OUT_KEYS:
+        assert torch.equal(got[k], want[k]), k
