@@ -72,8 +72,10 @@ scan looks for the other strand of the same mate (o_m1, :1666-1673), and
 the outer CostAware is done once either mate has no live outer (mate
 elimination, :1141-1159).  In every other run qlen_o and seed_o are the
 lane's qlen and seed and o_m1 is all ones, so those runs read what they
-read before.  The kernel's paired instantiation holds 16 outer and 48
-flat drivers per lane, the other one 8 and 24 (csrc/best.cu).
+read before.  The kernel is instantiated for paired and other runs; both
+size a lane's state by the run's nd outer and ndt flat drivers, up to the
+config tables' 16 and 48 (csrc/best.cu), and launch in machine_shape's
+blocks.
 """
 from __future__ import annotations
 
@@ -2000,14 +2002,11 @@ def run_machine_plain(pair, cfg: dict, st: dict, *, chunk: int,
 
 OUT_KEYS = ("result", "overflow", "count", "best_stratum", "nhits", "hits",
             "mode")
-# csrc/best.cu's two instantiations of K10 and their bounds on a lane's
-# driver DAG (outer, flat drivers): single-end and V1 runs (the largest
-# fused table, the -n 3 and -v 3 fw-DAG + rc-DAG of the V1 recorder, is
-# 2 x 4 outer and 2 x 12 flat drivers), and the paired V2 machine, K14,
-# whose merged -n 3 DAG has 16 outer and 48 flat drivers.  BestArgs's
-# config tables hold the paired bounds.
-ND_MAX, NDT_MAX = 8, 24
-ND_MAX_PAIRED, NDT_MAX_PAIRED = 16, 48
+# the config tables' bounds on a lane's driver DAG (outer, flat drivers):
+# the paired V2 machine's merged -n 3 DAG, K14's largest; the largest of
+# the other runs, the -n 3 and -v 3 fw-DAG + rc-DAG of the V1 recorder,
+# is 2 x 4 outer and 2 x 12 flat drivers
+ND_MAX, NDT_MAX = 16, 48
 STEP_SUBSTEPS = 18               # sub-steps of one lockstep iteration
 CFG_F = ("ebwt_fw", "fw", "exacts", "hh")
 CFG_O = ("o_kind", "o_flat0", "o_exbase", "o_fw", "o_chase_efw", "o_m1")
@@ -2036,11 +2035,15 @@ def pack_init(host: dict, nd: int, ndt: int,
     values as their bit patterns), laid out by init_layout; the config
     bases cfg0f/cfg0o are zero unless `host` gives them."""
     B = len(host["qlen"])
-    cols = [np.asarray(host[k] if k in host else np.zeros(B))
-            .astype(np.int64).reshape(B, w)
-            for k, w in init_layout(nd, ndt, paired)]
-    return np.ascontiguousarray(
-        (np.concatenate(cols, 1) & U32).astype(np.uint32).view(np.int32))
+    layout = init_layout(nd, ndt, paired)
+    out = np.zeros((B, sum(w for _k, w in layout)), np.uint32)
+    o = 0
+    for k, w in layout:
+        if k in host:
+            # an integer column casts to its low 32 bits
+            out[:, o:o + w] = np.asarray(host[k]).reshape(B, w)
+        o += w
+    return out.view(np.int32)
 
 
 _I = ctypes.c_int32
@@ -2058,12 +2061,86 @@ class BestArgs(ctypes.Structure):
                  ("has_seeded", _I), ("maxbts", _I), ("record", _I),
                  ("rec_cap", _I), ("paired", _I),
                  ("max_transitions", ctypes.c_int64)]
-                + [("cfg_" + k, _I * NDT_MAX_PAIRED) for k in CFG_F]
-                + [("cfg_" + k, _I * ND_MAX_PAIRED) for k in CFG_O]
+                + [("cfg_" + k, _I * NDT_MAX) for k in CFG_F]
+                + [("cfg_" + k, _I * ND_MAX) for k in CFG_O]
                 + [(k, _P) for k in ("init", "rows_qp", "seeds", "ptb",
-                                     "meta", "result", "overflow", "count",
-                                     "best_stratum", "nhits", "hits", "mode",
-                                     "steps")])
+                                     "meta", "scratch", "result", "overflow",
+                                     "count", "best_stratum", "nhits", "hits",
+                                     "mode", "steps")])
+
+
+# K10's launch shape (csrc/best.cu kMaxLanes, kOnchipL, lane_words,
+# scratch_words): MACHINE_LANES lanes a block, and smaller blocks for
+# batches of under SMS x MACHINE_LANES lanes, so that every SM gets
+# lanes.  16 lanes a block (four blocks an SM at the CLI's batch) ran
+# 3-12 % faster than a whole warp on the best_bench.py cases (PERF.md).
+# A lane's branch pool, live masks, active list and pick words (and, for
+# rows of up to ONCHIP_L positions, its meta) live in shared memory,
+# interleaved by lane; its per-driver blocks in a scratch column of
+# scratch_words words, allocated by the wrapper.
+MACHINE_LANES = 16
+ONCHIP_L = 64
+SMS = 132                           # the H100's streaming multiprocessors
+# a pool slot: 13 scalar words, d0-d3 in 2, edit depths in 3, edit codes
+# in 1
+POOL_WORDS = (15 + 3 + 1) * NBR
+PICK_WORDS = 8
+FLAT_WORDS = 34                     # per flat driver
+OUTER_WORDS = 47                    # per outer driver (paired: + 2)
+# a block's shared bytes: two blocks fit one SM's 228 KB with the
+# runtime's 1 KB a block
+SM_SHARED = 228 * 1024
+SHARED_LIMIT = SM_SHARED // 2 - 1024
+
+
+def lane_shared_words(L: int, nd: int, onchip: bool) -> int:
+    """K10's shared words a lane (csrc/best.cu lane_words): the pool, the
+    pick words, the outer active list and on chip each slot's 64-bit mask
+    of live positions and the meta [NBR][L] as 16-bit words."""
+    return (POOL_WORDS + PICK_WORDS + nd
+            + (2 * NBR + NBR * L // 2 if onchip else 0))
+
+
+def scratch_words(nd: int, ndt: int, paired: bool) -> int:
+    """A lane's scratch words (csrc/best.cu scratch_words): the blocks of
+    its nd outer and ndt flat drivers, a paired lane's outers with their
+    mate's read length and seed."""
+    return FLAT_WORDS * ndt + (OUTER_WORDS + 2 * paired) * nd
+
+
+def machine_shape(B: int, L: int, nd: int, ndt: int, paired: bool) -> dict:
+    """K10's launch for B lanes of row width L over nd outer / ndt flat
+    drivers: lanes (threads) a block, blocks, whether the meta is on chip
+    (L <= ONCHIP_L), the block's shared bytes (dynamic, and with the
+    arguments' copy), and the scratch words a lane."""
+    if not (0 < nd <= ND_MAX and 0 < ndt <= NDT_MAX):
+        raise ValueError(f"{nd} outer / {ndt} flat drivers exceed the "
+                         f"kernel's {ND_MAX} / {NDT_MAX}")
+    onchip = L <= ONCHIP_L
+    # B // SMS lanes a block (at least one) make at least SMS blocks
+    threads = max(1, min(MACHINE_LANES, B // SMS))
+    dynamic = threads * 4 * lane_shared_words(L, nd, onchip)
+    shared = dynamic + ctypes.sizeof(BestArgs)
+    if shared > SHARED_LIMIT:
+        raise ValueError(f"K10 needs {shared} shared bytes a block at L={L}")
+    return dict(threads=threads, blocks=-(-B // threads), onchip=onchip,
+                dynamic_shared=dynamic, shared=shared,
+                scratch_words=scratch_words(nd, ndt, paired))
+
+
+def _check_machine(L: int, nd: int, ndt: int, paired: bool) -> None:
+    """Raise unless csrc/best.cu's K10 launches the shape machine_shape
+    describes."""
+    so = kernels.lib()
+    if (so.bt_best_max_lanes() < MACHINE_LANES
+            or so.bt_best_onchip_l() != ONCHIP_L
+            or so.bt_best_args_bytes() != ctypes.sizeof(BestArgs)
+            or any(so.bt_best_lane_words(L, nd, oc)
+                   != lane_shared_words(L, nd, oc) for oc in (0, 1))
+            or so.bt_best_scratch_words(nd, ndt, int(paired))
+            != scratch_words(nd, ndt, paired)):
+        raise RuntimeError("csrc/best.cu and align/best_device.py disagree "
+                           "on K10's launch shape")
 
 
 def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
@@ -2086,42 +2163,65 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
     overflow includes the lanes still running at the budget; the most
     iterations (plain) or transitions (kernel) any lane took).
 
-    Launches csrc/best.cu's best_machine_kernel on CUDA tensors: one
-    thread per lane, 18 * max_steps transitions each (module docstring),
-    the branch pools in a per-lane scratch allocated here.  CPU tensors
-    take init_state + run_machine_plain."""
+    Launches csrc/best.cu's best_machine_kernel on CUDA tensors
+    (run_machine_lanes); CPU tensors take init_state + run_machine_plain."""
     dev = pair.device
     B = seeds.shape[0]
+    if not kernels.all_on_cpu(seeds, device=dev):
+        out, steps = run_machine_lanes(
+            pair, cfg, host, seeds, L=L, nd=nd, ndt=ndt, maxbts=maxbts,
+            n_k=n_k, m_max=m_max, strata=strata, qual_lim=qual_lim,
+            qual_order=qual_order, bt_on=bt_on, has_seeded=has_seeded,
+            max_steps=max_steps, record=record, rec_cap=rec_cap,
+            paired=paired)
+        return out, (steps.max() if B else torch.tensor(0)).long()
     kw = dict(nd=nd, ndt=ndt, L=L, nfrag=pair.nfrag, n_k=n_k, m_max=m_max,
               strata=strata, qual_lim=qual_lim, qual_order=qual_order,
               bt_on=bt_on, fc=pair.ftab_chars, has_seeded=has_seeded,
               record=record, rec_cap=rec_cap, paired=paired)
+    st = init_state(B, L, nd, ndt, seeds.numpy(), host, maxbts, dev)
+    cfg_t = {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+             for k, v in cfg.items()}
+    # thousands of small ops per iteration: intra-op threads only add
+    # their overhead (about 3x here)
+    nthreads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        st, it = run_machine_plain(pair, cfg_t, st, chunk=max_steps, **kw)
+    finally:
+        torch.set_num_threads(nthreads)
+    out = {k: st[k] for k in OUT_KEYS}
+    out["overflow"] = st["overflow"] | (st["mode"] != M_DONE)
+    return out, torch.tensor(it)
+
+
+def run_machine_lanes(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
+                      L: int, nd: int, ndt: int, maxbts: int, n_k: int,
+                      m_max: int, strata: bool, qual_lim: int,
+                      qual_order: bool, bt_on: bool, has_seeded: bool,
+                      max_steps: int, record: bool = False,
+                      rec_cap: int | None = None, paired: bool = False):
+    """K10 on CUDA tensors, as run_machine takes them: (outputs by
+    OUT_KEYS, each lane's transitions as int32 [B]).  One thread per lane
+    in machine_shape's blocks, 18 * max_steps transitions each (module
+    docstring); the per-lane scratch (the driver blocks' column, the
+    branch pools' ptb and, beyond ONCHIP_L, meta) allocated here, each
+    word initialised by the kernel where a transition can read it before
+    writing it."""
+    dev = pair.device
+    B = seeds.shape[0]
     if kernels.all_on_cpu(seeds, device=dev):
-        st = init_state(B, L, nd, ndt, seeds.numpy(), host, maxbts, dev)
-        cfg_t = {k: torch.from_numpy(np.asarray(v).astype(np.int64))
-                 for k, v in cfg.items()}
-        # thousands of small ops per iteration: intra-op threads only
-        # add their overhead (about 3x here)
-        nthreads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            st, it = run_machine_plain(pair, cfg_t, st, chunk=max_steps,
-                                       **kw)
-        finally:
-            torch.set_num_threads(nthreads)
-        out = {k: st[k] for k in OUT_KEYS}
-        out["overflow"] = st["overflow"] | (st["mode"] != M_DONE)
-        return out, torch.tensor(it)
+        raise ValueError("run_machine_lanes runs the kernel: CUDA tensors "
+                         "only (run_machine takes CPU tensors)")
     kernels.check(seeds, "seeds", torch.int64, 1, dev)
     kernels.check(pair.rstarts, "rstarts", torch.int64, 2, dev)
     nco, ncf = len(cfg["o_kind"]), len(cfg["ebwt_fw"])
-    lim_o, lim_f = ((ND_MAX_PAIRED, NDT_MAX_PAIRED) if paired
-                    else (ND_MAX, NDT_MAX))
-    if max(nco, nd) > lim_o or max(ncf, ndt) > lim_f:
+    if max(nco, nd) > ND_MAX or max(ncf, ndt) > NDT_MAX:
         raise ValueError(f"{nco} outer / {ncf} flat driver configs exceed "
-                         f"the kernel's {lim_o} / {lim_f}")
+                         f"the kernel's {ND_MAX} / {NDT_MAX}")
     if host["rows_qp"].shape != (B, ndt, 2 * L):
         raise ValueError("host rows_qp and the batch disagree on shapes")
+    shape = machine_shape(B, L, nd, ndt, paired)
     init = torch.from_numpy(pack_init(host, nd, ndt, paired)).to(dev)
     rows_qp = torch.from_numpy(np.ascontiguousarray(
         host["rows_qp"], dtype=np.int8)).to(dev)
@@ -2129,7 +2229,10 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
                           dtype=torch.int32, device=dev)
            for k in OUT_KEYS + ("steps",)}
     ptb = torch.empty((B, NBR, 2 * L), dtype=torch.int32, device=dev)
-    meta = torch.empty((B, NBR, L), dtype=torch.int32, device=dev)
+    meta = (None if shape["onchip"] else
+            torch.empty((B, NBR, L), dtype=torch.int16, device=dev))
+    scratch = torch.empty((shape["scratch_words"], B), dtype=torch.int32,
+                          device=dev)
     if B:
         a = BestArgs(
             fw=kernels.fm_view(pair.fw), bw=kernels.fm_view(pair.bw),
@@ -2142,28 +2245,31 @@ def run_machine(pair, cfg: dict, host: dict, seeds: torch.Tensor, *,
             max_transitions=STEP_SUBSTEPS * max_steps,
             init=init.data_ptr(), rows_qp=rows_qp.data_ptr(),
             seeds=seeds.data_ptr(), ptb=ptb.data_ptr(),
-            meta=meta.data_ptr(),
+            meta=None if meta is None else meta.data_ptr(),
+            scratch=scratch.data_ptr(),
             **{k: v.data_ptr() for k, v in out.items()})
         for k in CFG_F:
             getattr(a, "cfg_" + k)[:ncf] = [int(x) for x in cfg[k]]
         for k in CFG_O:
             getattr(a, "cfg_" + k)[:nco] = [int(x) for x in cfg[k]]
         _check_layout(nd, ndt, paired)
+        _check_machine(L, nd, ndt, paired)
         # K10r (record mode) and K14 (paired record mode) count apart
         # from K10
         kernels.launch("best_pev2" if paired else
                        "best_record" if record else "best_machine",
-                       "bt_best_machine", ctypes.byref(a), device=dev)
+                       "bt_best_machine", ctypes.byref(a), shape["threads"],
+                       device=dev)
     steps = out.pop("steps")
     out["overflow"] = out["overflow"] != 0
-    return out, (steps.max() if B else torch.tensor(0)).long()
+    return out, steps
 
 
 def machine_local_bytes() -> dict:
-    """The local memory per thread of csrc/best.cu's two instantiations of
-    K10 (cudaFuncGetAttributes), which the runtime reserves for every
-    resident thread: "single" (8 outer / 24 flat drivers: K10, K10r) and
-    "paired" (16 / 48: K14)."""
+    """The local memory (stack) per thread of csrc/best.cu's two
+    instantiations of K10 (cudaFuncGetAttributes), which the runtime
+    reserves for every resident thread: "single" (K10, K10r) and
+    "paired" (K14)."""
     so = kernels.lib()
     return {"single": so.bt_best_local_bytes(0),
             "paired": so.bt_best_local_bytes(1)}

@@ -159,8 +159,16 @@ _SIGNATURES = {
     #  part_refc, gated, qual, plen, qual_rounds, B, L, J, jrc, n, s, qt,
     #  maxbts, maq, norc, nofw, out, stream)
     "bt_derive_b_jobs": [_P] * 12 + [ctypes.c_int] * 11 + [_P, _P],
-    # (args, stream); BestArgs is align/best_device.py's
-    "bt_best_machine": [_P, _P],
+    # (args, threads, stream); BestArgs is align/best_device.py's
+    "bt_best_machine": [_P, ctypes.c_int, _P],
+    # () -> K10's most lanes a block, widest on-chip L, arguments' bytes
+    "bt_best_max_lanes": [],
+    "bt_best_onchip_l": [],
+    "bt_best_args_bytes": [],
+    # (L, nd, onchip) -> K10's shared words a lane; (nd, ndt, paired) ->
+    # its scratch words a lane
+    "bt_best_lane_words": [ctypes.c_int] * 3,
+    "bt_best_scratch_words": [ctypes.c_int] * 3,
     # (result, overflow, count, best_stratum, nhits, hits, hoff, B, out,
     #  stream)
     "bt_best_pack": [_P] * 7 + [ctypes.c_int, _P, _P],

@@ -124,14 +124,19 @@ Phases, each printing one JSON line:
              K10 finished, through the aligner's assemble, to the host
              best-first engine (the budget rule of align/best_device.py).  Every hit must equal its reference
              substring except at its reported mismatches.  The first policy
-             is timed; K10's bytes are those the run reads and writes,
-             counted by the plain version in its one, timed, run.
+             is timed: K10's launch alone (events around the C entry,
+             median of 10) and the wrapper's call with its packing and
+             uploads (median of 5); K10's bytes are those the run reads
+             and writes, counted by the plain version in its one, timed,
+             run.
 11. cli_best - 25,000 such reads through the CLI on the card, -v 2 -m 1
              --best --strata -S and -n 2 --best -k 1 (verbose), each counted
              from zero and traced, with the reads re-run on the host engine
              counted; every hit must equal its reference substring except at
              its reported mismatches, and the records of the first 160
-             reads must equal the CPU CLI's byte for byte.
+             reads must equal the CPU CLI's byte for byte.  K10 alone is
+             timed on the first run's first batch (8,192 reads, the
+             CLI's own call; no plain run): the K10 line's cli_batch.
 12. pe     - the paired recorder: 512 pairs of 50 bp mates (pe_pairs: the
              n phase's error and quality mix, fragments of 100-250 bases,
              10 % with a random mate, 5 % 400-600 apart), all four anchor
@@ -148,7 +153,8 @@ Phases, each printing one JSON line:
              -k 1 at rec_cap 1 (the lanes phase 0 leaves) and -v 2 -a -m 3
              (uncapped, every lane) on the dense pair, and -n 2 -k 1 at
              rec_cap 1 on 128 pairs with the pair thinned to offRate 13
-             (walk-left).  The first policy is timed; K10r's bytes are
+             (walk-left).  The first policy is timed (as K10 is);
+             K10r's bytes are
              those the run reads and writes (k10_bytes), counted by its
              one, timed, plain run.  K13 (pe_ilv,
              the V1 interleave, chase and rescue) held exactly to its
@@ -203,9 +209,10 @@ Phases, each printing one JSON line:
              host engine writes at -p 4, all three timed.  K14 is held to
              its plain version on the --best run's first batch (8,192
              pairs, the CLI's aligner, rec_cap 8: some lanes must reach
-             it), timed (K14 median of 20, the plain version one run that
-             also counts the work its bound prices): the numbers of K14's
-             line in the kernels line.
+             it), timed (K14's launch alone median of 10, the wrapper's
+             call median of 5, the plain version one run that also counts
+             the work its bound prices): the numbers of K14's line in the
+             kernels line.
 15. mesh   - K15 over a mesh of four entries, all the one card (one index
              copy; each shard one launch on its stream), with the K3
              remainder on each shard's top rows, and run_sharded (K6, K7)
@@ -222,7 +229,7 @@ Phases, each printing one JSON line:
              card: not a scaling figure).
 
 Phase device also prints the local memory per thread of K10's two
-instantiations (8/24 drivers: K10, K10r; 16/48: K14) and ptxas's lines
+instantiations (K10 and K10r; K14) and ptxas's lines about them and
 about K7's two layouts (stack frame, spills, registers).  Then the
 {"kernels": [...]} line (launches: the CLI runs, cli build included; K3
 dense's library-run launches beside its 0; K15's and the K3 remainder's,
@@ -953,11 +960,44 @@ def time_once(fn, device):
     return res, a.elapsed_time(b)
 
 
-def k7_ptxas() -> list:
-    """ptxas's lines about K7 (kernels.build keeps its report)."""
+def k7_ptxas(name="dfs_machine") -> list:
+    """ptxas's lines about K7 (kernels.build keeps its report), or about
+    the kernel whose mangled name holds `name`."""
     with open(os.path.join(ROOT, "bowtie_tpu_torch", "csrc", "build",
                            "ptxas.txt")) as f:
-        return ptxas_entry(f.read(), "dfs_machine")
+        return ptxas_entry(f.read(), name)
+
+
+BEST_LAUNCHES = ("best_machine", "best_record", "best_pev2")
+
+
+def machine_ms(fn, iters: int) -> dict:
+    """The best-first machine's launch inside fn() alone (K10, K10r,
+    K14): CUDA events recorded around the C entry's call, behind a spin
+    kernel, so that the wrapper's packing and uploads of the lanes' state
+    stay outside; median, min and max of `iters` calls after one
+    warm-up."""
+    real, times = kernels.launch, []
+
+    def timed(name, *a, **k):
+        if name not in BEST_LAUNCHES:
+            return real(name, *a, **k)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        s.record()
+        real(name, *a, **k)
+        e.record()
+        times.append((s, e))
+    kernels.launch = timed
+    try:
+        for _ in range(1 + iters):
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        kernels.launch = real
+    ts = [s.elapsed_time(e) for s, e in times[1:]]
+    return dict(ms=statistics.median(ts), ms_min=min(ts), ms_max=max(ts))
 
 
 def k7_diag(pair, jd, seeds, c0, kw, steps, device, full=True) -> dict:
@@ -1851,6 +1891,10 @@ def best_case(name, al, reads, max_steps, device, genome_chars, timed):
     row["work"] = work
     nbytes10 = k10_bytes(work, host, L, out)
     nbytes11 = k11_bytes(out)
+
+    def run10():
+        return bd.run_machine(al.pair, al.hostinit.cfg, host, seeds_d,
+                              max_steps=max_steps, **kw)
     slot = torch.arange(bd.H_MAX, device=device)
     hits3 = out["hits"].view(B, bd.H_MAX, bd.HIT_W)
     stats = {
@@ -1858,9 +1902,8 @@ def best_case(name, al, reads, max_steps, device, genome_chars, timed):
             name="K10 best_machine (K1/K5 rank4/lf4pair inlined)",
             route="cuda", source=BEST_SOURCE,
             replaces="bowtie_tpu/align/best_device.py:2224 (:638 init)",
-            ms=time_ms(lambda: bd.run_machine(
-                al.pair, al.hostinit.cfg, host, seeds_d, max_steps=max_steps,
-                **kw), device, 5),
+            **machine_ms(run10, 10),
+            call_ms=time_ms(run10, device, 5),
             plain_ms=k10_plain_ms, plain_with_work_count=True,
             **bounds(nbytes10, work["rank_codes"], work["walk_steps"],
                      work["word_codes"],
@@ -1983,6 +2026,13 @@ def phase_cli_best(rng, work, device, base, genome, rep_starts, seg_len,
     names = {r.name for r in ReadSource([head]).records()}
     runs, rows = {}, {}
     real_build = cli.build_aligner
+    real_machine = bd.run_machine
+    first = []
+
+    def machine(*a, **k):         # the first run's first batch, kept
+        if not first:
+            first.append((a, k))
+        return real_machine(*a, **k)
     for tag, args, sam in (
             ("-v 2 -m 1 --best --strata -S",
              ["-v", "2", "-m", "1", "--best", "--strata", "-S"], True),
@@ -1994,12 +2044,14 @@ def phase_cli_best(rng, work, device, base, genome, rep_starts, seg_len,
             built.append(real_build(*a, **k))
             return built[-1]
         cli.build_aligner = build
+        bd.run_machine = machine
         try:
             ((wall, err), busy), launches = counted(lambda: profiled(
                 lambda: run_cli(args + ["-x", base, reads, out], device)),
                 device)
         finally:
             cli.build_aligner = real_build
+            bd.run_machine = real_machine
         require(isinstance(built[0], bd.DeviceBestAligner),
                 f"cli {tag} built {type(built[0]).__name__}")
         require(launches["best_machine"] > 0 and launches["best_pack"] > 0,
@@ -2020,9 +2072,18 @@ def phase_cli_best(rng, work, device, base, genome, rep_starts, seg_len,
                      "cpu_equal_lines": len(want), "cpu_slice_s": cpu_s,
                      "summary": err.strip().splitlines()}
         runs["cli " + tag] = launches
+    # K10 alone on the first run's first batch (the CLI's own call), no
+    # plain run: its numbers beside the kernels line's 2,048 reads
+    a, k = first[0]
+    require(len(a[3]) == min(CLI_BATCH, BEST_CLI_READS),
+            f"cli_best: K10's first batch took {len(a[3])} lanes")
+    k10_batch = dict(machine_ms(lambda: bd.run_machine(*a, **k), 10),
+                     lanes=len(a[3]), L=k["L"], nd=k["nd"], ndt=k["ndt"],
+                     policy="-v 2 -m 1 --best --strata -S, the CLI's first "
+                            "batch")
     emit({"phase": "cli_best", "reads": BEST_CLI_READS, "gpu": gpu,
-          "slice_reads": BEST_SLICE, "runs": rows})
-    return runs
+          "slice_reads": BEST_SLICE, "runs": rows, "k10_batch": k10_batch})
+    return runs, k10_batch
 
 
 PE_LEN = 50
@@ -2394,7 +2455,9 @@ def phase_pe(rng, rng_k12, work, device, genome, rep_starts, seg_len, idx,
             replaces="bowtie_tpu/align/best_device.py:1030 (_step_main "
                      "record=True), :1064 _record_range, :854-866 "
                      "_cfgF/_cfgO",
-            ms=time_ms(lambda: bd.run_machine(*a["args"], **kw), device, 5),
+            **machine_ms(lambda: bd.run_machine(*a["args"], **kw), 10),
+            call_ms=time_ms(lambda: bd.run_machine(*a["args"], **kw),
+                            device, 5),
             plain_ms=row["plain_ms"], plain_with_work_count=True,
             **bounds(nbytes, work_c["rank_codes"], work_c["walk_steps"],
                      work_c["word_codes"],
@@ -2459,10 +2522,11 @@ def pev2_case(name, al, pairs, cap, max_steps, device, timed):
     """K14 on the merged lanes of `pairs` (one per pair), held to its plain
     version on the card on every lane the plain version finished within
     max_steps, and K11 on its records; every lane past that budget that
-    K14 finished, replayed, to the V2 host engine.  Timed: K14 median of
-    20; the plain run counts the work its bound prices, and its time
-    includes the count (the plain version is run once: its iterations are
-    slow).  -> (row, the kernels-line entry when timed)."""
+    K14 finished, replayed, to the V2 host engine.  Timed: K14's launch
+    alone median of 10, the wrapper's call median of 5; the plain run
+    counts the work its bound prices, and its time includes the count
+    (the plain version is run once: its iterations are slow).  -> (row,
+    the kernels-line entry when timed)."""
     s1 = fill_seed_caches([p[0] for p in pairs], al.global_seed)
     s2 = fill_seed_caches([p[1] for p in pairs], al.global_seed)
     a = al.machine.record_inputs(pairs, s1, s2)
@@ -2550,8 +2614,10 @@ def pev2_case(name, al, pairs, cap, max_steps, device, timed):
                  "(:157 record -> best_device.py:2224 run_chunk with "
                  "record=True, paired=True: :1141-1159, :1666-1673, "
                  ":675-681, :731, :1102, :1845, :1856, :2099)",
-        ms=time_ms(lambda: bd.run_machine(pair, cfg, host, seeds, **kw),
-                   device, 20),
+        **machine_ms(lambda: bd.run_machine(pair, cfg, host, seeds, **kw),
+                     10),
+        call_ms=time_ms(lambda: bd.run_machine(pair, cfg, host, seeds, **kw),
+                        device, 5),
         plain_ms=plain_ms, plain_with_work_count=True,
         **bounds(nbytes, work_c["rank_codes"], work_c["walk_steps"],
                  work_c["word_codes"],
@@ -3031,10 +3097,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s,
           # the local memory per thread of K10's two instantiations
-          # (K10/K10r: 8/24 drivers; K14: 16/48), reserved for every
-          # resident thread
+          # (K10/K10r; K14), reserved for every resident thread
           "best_machine_local_bytes": bd.machine_local_bytes(),
-          # K7's stack frame, spills and registers, both layouts
+          # the stack frame, spills and registers of K10's two
+          # instantiations and of K7's two layouts
+          "best_machine_ptxas": k7_ptxas("best_machine"),
           "dfs_machine_ptxas": k7_ptxas()})
     phase_s = {}
 
@@ -3074,8 +3141,11 @@ def main() -> int:
                       CLI_N_READS, gpu))
     stats.update(timed("best", phase_best, rng, work, device, genome,
                        rep_starts, seg_len, idx, idx_bw))
-    runs.update(timed("cli_best", phase_cli_best, rng, work, device, base,
-                      genome, rep_starts, seg_len, gpu))
+    best_runs, k10_batch = timed("cli_best", phase_cli_best, rng, work,
+                                 device, base, genome, rep_starts, seg_len,
+                                 gpu)
+    runs.update(best_runs)
+    stats["K10"]["cli_batch"] = k10_batch
     refs = unpack_reference(*read_bitpair_reference(base), plen=idx.plen)
     stats.update(timed("pe", phase_pe, rng,
                        np.random.default_rng(args.seed + 2), work, device,

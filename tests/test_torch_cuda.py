@@ -488,8 +488,9 @@ def test_pev2_kernel_matches_plain(card, tmp_path, kw, cap, dense):
     """K14 (best_machine_kernel's paired instantiation, the merged-mate
     DAG of the V2 recorder: 8, 12 and 16 outer drivers) equals its plain
     version on every lane the plain version finishes without overflow,
-    overflow flags alike, and launches as "best_pev2" only; each
-    instantiation reports its local memory, the paired one more."""
+    overflow flags alike, and launches as "best_pev2" only; neither
+    instantiation keeps a stack frame (the lane's state lives in
+    registers, shared memory and the wrapper's scratch)."""
     from bowtie_tpu_torch.align import best_device as tbd
     from bowtie_tpu_torch.align.pev2_device import DevicePairedV2Aligner
     from bowtie_tpu_torch.align.policy import KPolicy
@@ -526,8 +527,105 @@ def test_pev2_kernel_matches_plain(card, tmp_path, kw, cap, dense):
         assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
     assert int(out["nhits"].sum()) > 0
     assert len(seeds) == len(pairs)
-    local = tbd.machine_local_bytes()
-    assert 0 < local["single"] < local["paired"]
+    assert tbd.machine_local_bytes() == {"single": 0, "paired": 0}
+
+
+def _pev2_against_plain(al, pairs, cap, budget):
+    """K14 on the merged lanes of `pairs` and its plain version with
+    `budget` iterations: equal on every lane the plain version finishes
+    without overflow, overflow flags alike where it finishes.  -> (the
+    kernel's outputs, the lanes compared)."""
+    from bowtie_tpu_torch.align import best_device as tbd
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    s1 = fill_seed_caches([p[0] for p in pairs], 0)
+    s2 = fill_seed_caches([p[1] for p in pairs], 0)
+    a = al.machine.record_inputs(pairs, s1, s2)
+    pair, cfg, host, seeds = a["args"]
+    kernels.reset_launches()
+    out, _ = tbd.run_machine(*a["args"], **a["kw"], rec_cap=cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["best_pev2"] == 1
+    pkw = dict(a["kw"])
+    maxbts = pkw.pop("maxbts")
+    pkw.pop("max_steps")
+    st = tbd.init_state(len(seeds), pkw["L"], pkw["nd"], pkw["ndt"],
+                        seeds.cpu().numpy(), host, maxbts, "cuda")
+    cfg_t = {c: torch.from_numpy(np.asarray(v).astype(np.int64)).cuda()
+             for c, v in cfg.items()}
+    st, _ = tbd.run_machine_plain(pair, cfg_t, st, chunk=budget,
+                                  nfrag=pair.nfrag, fc=pair.ftab_chars,
+                                  rec_cap=cap, **pkw)
+    done = st["mode"] == tbd.M_DONE
+    assert torch.equal(out["overflow"][done], st["overflow"][done])
+    ok = done & ~st["overflow"]
+    for key in ("hits", "nhits", "mode", "result", "count"):
+        assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
+    return out, int(ok.sum())
+
+
+def test_pev2_kernel_beyond_l2(card, tmp_path):
+    """K14 on 8,192 pairs, the CLI's batch, whose lanes' scratch (the
+    driver blocks' column and the branch pools' ptb) exceeds the 50 MB L2:
+    equal to its plain version on every lane that finishes within 300
+    plain iterations, over an eighth of them."""
+    from bowtie_tpu_torch.align import best_device as tbd
+    from bowtie_tpu_torch.align.pev2_device import DevicePairedV2Aligner
+    from bowtie_tpu_torch.align.policy import KPolicy
+    idx, refs = card
+    pairs, _m1, _m2 = _pairs(refs, 8192, 37, tmp_path)
+    al = DevicePairedV2Aligner(idx, read_ebwt(BASE + ".rev"), refs,
+                               KPolicy(), device="cuda", better=True,
+                               mode="n", seed_mms=2)
+    out, compared = _pev2_against_plain(al, pairs, al.rec_cap, 300)
+    shape = tbd.machine_shape(len(pairs), 64, al.machine.hostinit.nd,
+                              al.machine.hostinit.ndt, True)
+    assert shape["blocks"] >= 132 and shape["threads"] == tbd.MACHINE_LANES
+    assert 4 * len(pairs) * (shape["scratch_words"] + tbd.NBR * 2 * 64) \
+        > 50 * 2**20
+    assert compared > len(pairs) // 8 and int(out["nhits"].sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 31, 133, 2113, 4225],
+                         ids=["one", "under_a_warp", "sms_plus_one",
+                              "16_a_block_plus", "32_a_block_plus"])
+def test_best_lane_counts(card, tmp_path, n):
+    """K10 at lane counts around its launch shape's edges (a block of one
+    lane; 31 lanes, one a block; 132 SMs' worth and one more; 16 x 132
+    and 32 x 132 lanes and one more, a partial last block) equals its
+    plain version."""
+    from bowtie_tpu_torch.align import best_device as tbd
+    from bowtie_tpu_torch.align.policy import INF, KPolicy
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idx, refs = card
+    reads = [r for r in _n_reads(refs, 2 * n + 40, 41, tmp_path / "r.fq")
+             if 4 <= len(r.seq)][:n]
+    assert len(reads) == n
+    al = tbd.DeviceBestAligner(idx, read_ebwt(BASE + ".rev"),
+                               KPolicy(3, INF), device="cuda", v=2,
+                               strata=True)
+    L = 64
+    seeds = fill_seed_caches(reads, 0)
+    host = al.hostinit.build(reads, L, seeds)
+    skw = dict(L=L, nd=al.nd, ndt=al.ndt, maxbts=al.maxbts,
+               n_k=al._sink_n(), m_max=tbd.INF32, strata=True,
+               qual_lim=al.qual_lim, qual_order=al.qual_order,
+               bt_on=al.bt_on, has_seeded=False, max_steps=60000)
+    out, _ = tbd.run_machine(al.pair, al.hostinit.cfg, host,
+                             torch.from_numpy(seeds.astype(np.int64)).cuda(),
+                             **skw)
+    st = tbd.init_state(n, L, al.nd, al.ndt, seeds, host, al.maxbts, "cuda")
+    cfg = {c: torch.from_numpy(v.astype(np.int64)).cuda()
+           for c, v in al.hostinit.cfg.items()}
+    skw.pop("max_steps")
+    skw.pop("maxbts")
+    st, _ = tbd.run_machine_plain(al.pair, cfg, st, chunk=60000,
+                                  nfrag=al.pair.nfrag,
+                                  fc=al.pair.ftab_chars, **skw)
+    assert bool((st["mode"] == tbd.M_DONE).all())
+    assert torch.equal(out["overflow"], st["overflow"])
+    ok = ~st["overflow"]
+    for key in tbd.OUT_KEYS:
+        assert torch.equal(out[key][ok].long(), st[key][ok].long()), key
 
 
 @pytest.mark.parametrize("kw,dense", [({}, True), ({}, False),
