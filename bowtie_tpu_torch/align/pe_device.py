@@ -27,7 +27,7 @@ part, the branch-and-bound search, batches:
    use_ilv gate takes it, pe_device.py:496-503, 882): K13
    (align/pe_ilv_device.py run_ilv) runs the interleave, the chases and
    the rescue scans of every pair whose mates are at most 64 bases, one
-   thread per pair, and decides it or escalates it; _ilv_assemble builds
+   warp per pair, and decides it or escalates it; _ilv_assemble builds
    a decided pair's result on the host as the host engine's
    _resolve_outstanding would.
 3. REPLAY (host): the pairs K13 does not take (other policies, longer

@@ -180,6 +180,14 @@ _SIGNATURES = {
     "bt_sa_round": [_P] + [ctypes.c_int] * 3 + [_P] * 4 + [_P],
     # (args, stream); IlvArgs is align/pe_ilv_device.py's
     "bt_pe_ilv": [_P, _P],
+    # () -> K13's warps a block, reference piece bytes, widest query row,
+    # a warp's and the arguments' shared bytes, its local bytes
+    "bt_ilv_warps": [],
+    "bt_ilv_piece": [],
+    "bt_ilv_max_lq": [],
+    "bt_ilv_warp_bytes": [],
+    "bt_ilv_args_bytes": [],
+    "bt_ilv_local_bytes": [],
 }
 
 

@@ -229,8 +229,10 @@ Phases, each printing one JSON line:
              card: not a scaling figure).
 
 Phase device also prints the local memory per thread of K10's two
-instantiations (K10 and K10r; K14) and ptxas's lines about them and
-about K7's two layouts (stack frame, spills, registers).  Then the
+instantiations (K10 and K10r; K14) and of K13, and ptxas's lines about
+them and about K7's two layouts (stack frame, spills, registers); K13's
+entry in the kernels line repeats its own, with its launch shape on the
+CLI's batch.  Then the
 {"kernels": [...]} line (launches: the CLI runs, cli build included; K3
 dense's library-run launches beside its 0; K15's and the K3 remainder's,
 which no CLI path runs, phases kernels' and mesh's), the seconds of
@@ -2374,7 +2376,7 @@ def k13_case(name, al, pairs, device, timed):
     require(err == 0, f"K13 {name}: the kernel disagrees with its plain "
             f"version by {err}")
     o = {k: v.cpu() for k, v in out.items()}
-    row = dict(pairs=len(pairs), lanes=len(lanes), Lq=S.Lq,
+    row = dict(pairs=len(pairs), lanes=len(lanes), Lq=S.Lq, SPAN=S.SPAN,
                dense=S.dense, off_rate=al.pair.fw.off_rate,
                nfrag=S.nfrag, max_steps=S.max_steps,
                decided=int((o["escalate"] == 0).sum()),
@@ -3092,6 +3094,8 @@ def main() -> int:
     t = time.time()
     kernels.build(force=True)
     build_s = time.time() - t
+    require(ilv.ilv_local_bytes() == 0,
+            f"K13 has a stack: {ilv.ilv_local_bytes()} local bytes")
     emit({"phase": "device", "gpu": gpu,
           "torch_device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3102,7 +3106,10 @@ def main() -> int:
           # the stack frame, spills and registers of K10's two
           # instantiations and of K7's two layouts
           "best_machine_ptxas": k7_ptxas("best_machine"),
-          "dfs_machine_ptxas": k7_ptxas()})
+          "dfs_machine_ptxas": k7_ptxas(),
+          # and of K13
+          "ilv_kernel_ptxas": k7_ptxas("ilv_kernel"),
+          "ilv_kernel_local_bytes": ilv.ilv_local_bytes()})
     phase_s = {}
 
     def timed(name, fn, *a):
@@ -3166,7 +3173,11 @@ def main() -> int:
     k13 = stats["K13"]
     k13["at_512_pairs"] = {k: k13[k] for k in K13_KEYS}
     k13.update({k: k13_batch[k] for k in K13_KEYS},
-               policy="-1/-2 default, the CLI's first batch (round 1)")
+               policy="-1/-2 default, the CLI's first batch (round 1)",
+               shape=ilv.ilv_shape(k13_batch["lanes"], k13_batch["Lq"]),
+               window=ilv.ilv_window(k13_batch["SPAN"], k13_batch["Lq"]),
+               ptxas=k7_ptxas("ilv_kernel"),
+               local_bytes=ilv.ilv_local_bytes())
     # K14's: the CLI's first --best batch
     stats["K14"] = dict(k14_batch, pairs=CLI_BATCH)
     counter = {"K2": "exact_ranges", "K12": "exact_ranges_cat",

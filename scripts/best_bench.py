@@ -306,16 +306,17 @@ def sub(args, kw, lo, hi):
     return (pair, cfg, h, seeds[lo:hi].contiguous()), kw
 
 
-def kernel_ms(T, call, reps):
-    """The machine's launches alone: CUDA events recorded around each C
-    entry's call (kernels.launch), behind a spin kernel, so the wrapper's
-    packing and uploads stay outside.  -> ms per call (summed over its
-    launches), reps calls after two warm-up calls."""
+def kernel_ms(T, call, reps, names=LAUNCH_NAMES):
+    """The machine's launches alone (those counted under `names`): CUDA
+    events recorded around each C entry's call (kernels.launch), behind a
+    spin kernel, so the wrapper's packing and uploads stay outside.  ->
+    ms per call (summed over its launches), reps calls after two warm-up
+    calls."""
     torch, K = T.torch, T.kernels
     real, times = K.launch, []
 
     def timed(name, *a, **k):
-        if name not in LAUNCH_NAMES:
+        if name not in names:
             return real(name, *a, **k)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -336,7 +337,7 @@ def kernel_ms(T, call, reps):
 
 
 def call_ms(T, call, reps):
-    """run_machine as chip_smoke.py times it: events around the call,
+    """A wrapper's call (run_machine, run_ilv) as chip_smoke.py times it: events around the call,
     behind a ~0.5 ms spin kernel."""
     torch = T.torch
     call()
@@ -510,22 +511,31 @@ def worker(args) -> int:
     return 0
 
 
+def check_equal(work, tags, cases) -> None:
+    """Raise unless each case's saved arrays (TAG.CASE.npz under work)
+    are the same arrays with the same values under every tag as under
+    the first."""
+    first = tags[0]
+    for name in cases:
+        ref = np.load(os.path.join(work, f"{first}.{name}.npz"))
+        for t in tags[1:]:
+            got = np.load(os.path.join(work, f"{t}.{name}.npz"))
+            if sorted(got.files) != sorted(ref.files):
+                raise SystemExit(f"{name}: {t} has other outputs than "
+                                 f"{first}")
+            for k in ref.files:
+                if not np.array_equal(ref[k], got[k]):
+                    raise SystemExit(f"{name}: {t} differs from {first} "
+                                     f"in {k}")
+
+
 def compare(args) -> int:
     runs = [json.load(open(os.path.join(args.work, f"{t}.json")))
             for t in args.compare]
-    first = args.compare[0]
-    table = {}
-    for name in runs[0]["cases"]:
-        ref = np.load(os.path.join(args.work, f"{first}.{name}.npz"))
-        for r in runs:
-            got = np.load(os.path.join(args.work, f"{r['tag']}.{name}.npz"))
-            for k in ref.files:
-                if not np.array_equal(ref[k], got[k]):
-                    raise SystemExit(f"{name}: {r['tag']} differs from "
-                                     f"{first} in {k}")
-        table[name] = {r["tag"]: [r["cases"][name][k] for k in
-                                  ("ms", "ms_min", "ms_max")]
-                       for r in runs}
+    check_equal(args.work, args.compare, runs[0]["cases"])
+    table = {name: {r["tag"]: [r["cases"][name][k] for k in
+                               ("ms", "ms_min", "ms_max")] for r in runs}
+             for name in runs[0]["cases"]}
     print(json.dumps({"equal_outputs_hits_and_steps": True,
                       "kernel_ms_median_min_max": table,
                       "gpu": runs[0].get("gpu")}), flush=True)

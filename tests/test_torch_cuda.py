@@ -17,7 +17,8 @@ recorder's fused fw-DAG + rc-DAG run) capped and uncapped, and at rec_cap
 record mode, the V2 recorder's merged-mate DAG) under -v 1, -n 2 and
 -n 3, dense and walk-left; K13 (the V1
 interleave, chase and rescue of csrc/ilv.cu) on the recorder's streams,
-dense and walk-left, --fr and --ff; K16 (the
+dense and walk-left, --fr and --ff, at 1, 31, 33, 133 and 8,192 pairs and
+on windows staged in pieces, with no stack; K16 (the
 prefix-doubling round of csrc/sa.cu) round for round on texts of thousands
 of look-back tiles, at its tile edges, all-A and period 3, and on ranks
 under BIG = 2^31 - 1, and the SA it builds against SA-IS; K8 on synthetic
@@ -667,6 +668,94 @@ def test_ilv_kernel_matches_plain(card, tmp_path, kw, dense):
         assert torch.equal(iters, piters), cap
         found += int(out["res_found"].sum())
     assert found > 0
+
+
+def _ilv_streams(al, pairs):
+    """K13's inputs for round 1 of `pairs` (rec_cap 1 after phase 0)."""
+    from bowtie_tpu_torch.utils.rng import fill_seed_caches
+    idxs = list(range(len(pairs)))
+    s1 = fill_seed_caches([p[0] for p in pairs], 0)
+    sts, ovd = al._record_all(al.plan(pairs), idxs, s1, 1)
+    items = [(i, sts[i]) for i in idxs if not ovd[i]]
+    S, st, lanes, host = al.ilv_inputs(pairs, items, s1)
+    assert lanes and not host
+    return S, st
+
+
+def _ilv_hold(pair, S, st):
+    """K13 against its plain version: every output and each pair's
+    iterations.  -> the outputs."""
+    from bowtie_tpu_torch.align import pe_ilv_device as ilv
+    kernels.reset_launches()
+    out, iters = ilv.run_ilv(pair, st, S)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pe_ilv"] == 1
+    pout, piters = ilv.run_ilv_plain(pair, {k: v.clone()
+                                            for k, v in st.items()}, S)
+    for key in ilv.OUT_KEYS:
+        assert torch.equal(out[key], pout[key]), key
+    assert torch.equal(iters, piters)
+    return out
+
+
+def test_ilv_kernel_has_no_stack(card):
+    """ptxas gives K13 no stack frame and no spills, and the runtime
+    reserves no local memory for it."""
+    from bowtie_tpu_torch.align import pe_ilv_device as ilv
+    from bowtie_tpu_torch.utils.kdiag import ptxas_entry
+    kernels.lib()
+    with open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                           "build", "ptxas.txt")) as f:
+        lines = ptxas_entry(f.read(), "ilv_kernel")
+    frames = [ln for ln in lines if "stack frame" in ln]
+    assert len(frames) == 1, lines
+    for ln in frames:
+        assert ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                             "0 bytes spill loads"), lines
+    assert ilv.ilv_local_bytes() == 0
+
+
+def test_ilv_pair_counts(card, tmp_path):
+    """K13 equals its plain version on the first 1, 31, 33 and 133 pairs
+    and on all 8,192 (the CLI's batch) of one recording on small_index:
+    blocks partly filled, one pair, several blocks, more pairs than the
+    card holds at once."""
+    from test_torch_ilv_shape import first_pairs
+    from bowtie_tpu_torch.align.pe_device import DevicePairedBestAligner
+    from bowtie_tpu_torch.align.policy import KPolicy
+    idx, refs = card
+    al = DevicePairedBestAligner(idx, read_ebwt(BASE + ".rev"), refs,
+                                 KPolicy(), device="cuda")
+    pairs, _m1, _m2 = _pairs(refs, 8192, 43, tmp_path)
+    S, st = _ilv_streams(al, pairs)
+    B = st["hits"].shape[0]
+    assert B > 4096
+    for n in (1, 31, 33, 133, B):
+        _ilv_hold(al.pair, S, first_pairs(st, n) if n < B else st)
+
+
+def test_ilv_windows_in_pieces(card, tmp_path):
+    """K13 at -X 1000, whose rescue windows exceed a warp's reference
+    pieces so that scans restage them, on 512 pairs of
+    tests/test_torch_ilv_shape.py's genome (a tandem repeat, segment
+    copies, Ns): equal to its plain version."""
+    from test_torch_ilv_shape import _genome, _write_pairs
+    from bowtie_tpu_torch.align import pe_ilv_device as ilv
+    from bowtie_tpu_torch.align.pe_device import DevicePairedBestAligner
+    from bowtie_tpu_torch.align.policy import KPolicy
+    from bowtie_tpu_torch.build.builder import build_index
+    base = str(tmp_path / "g")
+    build_index(_genome(np.random.default_rng(5)), ["a", "b"], base,
+                off_rate=4, ftab_chars=6)
+    idx = read_ebwt(base)
+    refs = unpack_reference(*read_bitpair_reference(base), plen=idx.plen)
+    al = DevicePairedBestAligner(idx, read_ebwt(base + ".rev"), refs,
+                                 KPolicy(), device="cuda", max_insert=1000)
+    pairs = _write_pairs(refs, 512, 17, (60, 900), tmp_path)
+    S, st = _ilv_streams(al, pairs)
+    assert ilv.ilv_window(S.SPAN, S.Lq)["in_pieces"]
+    out = _ilv_hold(al.pair, S, st)
+    assert int(out["res_found"].sum()) > 0
 
 
 @pytest.mark.parametrize("args", [[], ["-v", "2", "-a", "-m", "3", "-S"],
