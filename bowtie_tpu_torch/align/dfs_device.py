@@ -12,7 +12,8 @@ plain PyTorch version (in this module) on CPU tensors:
 
   K6 derive_rows  <- dfs_device.py:496 derive_rows_jit (:412
                      _derive_rows_impl): the by-depth query/qual/penalty
-                     rows and the N-tally gates of every (lane, job)
+                     rows and the N-tally gates of every (lane, job), a
+                     warp per row (csrc/jobs.cu)
   K7 run_machine  <- dfs_device.py:1484 run_machine, :1812 run_chunk
                      (:1445 _machine_step): the state machine; K5
                      (:261 _rank4, :303 _lf4pair) is inlined in it as
@@ -69,6 +70,7 @@ oracle's from the plain version; the two agree, so the CLI's bytes do.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -222,11 +224,11 @@ _FIDX = {f: i for i, f in enumerate(JOB_FIELDS)}
 
 
 def _check_layout() -> None:
-    """Raise unless csrc/dfs.cu lays out as many job fields as
+    """Raise unless csrc/dfs_layout.cuh lays out as many job fields as
     JOB_FIELDS (the kernels index scal rows by NJF)."""
     if kernels.lib().bt_dfs_njf() != NJF:
-        raise RuntimeError("csrc/dfs.cu and align/dfs_device.py disagree "
-                           "on the job fields")
+        raise RuntimeError("csrc/dfs_layout.cuh and align/dfs_device.py "
+                           "disagree on the job fields")
 
 
 def _len_bucket(n: int, buckets=(40, 64, 128, 256, 512, 1024, 2048,
@@ -297,11 +299,49 @@ def derive_rows_plain(scal: torch.Tensor, base_codes: torch.Tensor,
     return out.reshape(B, J, NJF), qqp.to(torch.int8).reshape(B, J, 3 * L)
 
 
+# K6's launch shape (csrc/jobs.cu kRowWarps, kRowsPerWarp): a warp a
+# (lane, job) row, ROWS_A_WARP consecutive rows in turn, ROW_WARPS warps a
+# block.  (Four rows a warp were 8 % faster than one on launch B's table
+# and equal elsewhere: PERF.md, K6's run B.)
+ROW_WARPS = 8
+ROWS_A_WARP = 4
+
+
+def derive_rows_shape(B: int, J: int) -> dict:
+    """K6's launch for a [B, J] job table, as csrc/jobs.cu bt_derive_rows
+    makes it: threads a block, rows a warp, rows a block and blocks."""
+    rows = B * J
+    if B < 0 or J < 0 or rows >= 1 << 40:
+        raise ValueError(f"K6 takes no table of {B} x {J} rows")
+    per = ROW_WARPS * ROWS_A_WARP
+    return dict(threads=ROW_WARPS * 32, rows_a_warp=ROWS_A_WARP,
+                rows_a_block=per, blocks=-(-rows // per))
+
+
+@functools.cache
+def _check_rows_shape(so) -> None:
+    """Raise unless the library `so`'s K6 launches the shape
+    derive_rows_shape describes (once a library)."""
+    if (so.bt_jobs_row_warps() != ROW_WARPS
+            or so.bt_jobs_rows_per_warp() != ROWS_A_WARP):
+        raise RuntimeError("csrc/jobs.cu and align/dfs_device.py disagree "
+                           "on K6's launch shape")
+
+
+def jobs_local_bytes() -> dict:
+    """The local memory (stack) per thread of csrc/jobs.cu's K6 and K9
+    (cudaFuncGetAttributes)."""
+    so = kernels.lib()
+    return {"derive_rows": so.bt_jobs_local_bytes(0),
+            "derive_b_jobs": so.bt_jobs_local_bytes(1)}
+
+
 def derive_rows(scal: torch.Tensor, base_codes: torch.Tensor,
                 base_qual: torch.Tensor, base_plen: torch.Tensor, fc: int):
     """K6: (scal with ns_gate/ns_ftab filled, qqp int8 [B, J, 3L]) from
-    the job table and the base read arrays.  Launches csrc/dfs.cu's
-    derive_rows_kernel on CUDA tensors, one thread per (lane, job)."""
+    the job table and the base read arrays.  Launches csrc/jobs.cu's
+    derive_rows_kernel on CUDA tensors, a warp per (lane, job) row
+    (derive_rows_shape)."""
     dev = scal.device
     if kernels.all_on_cpu(scal, base_codes, base_qual, base_plen):
         return derive_rows_plain(scal, base_codes, base_qual, base_plen, fc)
@@ -315,10 +355,12 @@ def derive_rows(scal: torch.Tensor, base_codes: torch.Tensor,
             or base_codes.shape[0] != B or base_plen.shape[0] != B):
         raise ValueError("scal, base_codes, base_qual and base_plen "
                          "disagree on their shapes")
+    derive_rows_shape(B, J)
     out = torch.empty_like(scal)
     qqp = torch.empty((B, J, 3 * L), dtype=torch.int8, device=dev)
     if B * J:
         _check_layout()
+        _check_rows_shape(kernels.lib())
         kernels.launch("derive_rows", "bt_derive_rows", scal.data_ptr(),
                        base_codes.data_ptr(), base_qual.data_ptr(),
                        base_plen.data_ptr(), B, J, L, fc, out.data_ptr(),

@@ -18,7 +18,9 @@ PyTorch version (in this module) on CPU tensors:
 
   K9 derive_b_jobs <- n_device.py:85 _derive_b_jobs_device (jit :593-607)
                       without its tail, _derive_rows_impl (:202-207),
-                      which is K6 (dfs_device.derive_rows)
+                      which is K6 (dfs_device.derive_rows); a warp per
+                      lane, the lane's table built in shared memory
+                      (csrc/jobs.cu)
 
 K9 reads launch A's outputs where K7 left them, so nothing is downloaded
 between the launches: the one download is of both launches' packed hits.
@@ -38,6 +40,8 @@ thread retires its own lane, so one launch replaces it); and the
 BOWTIE_TPU_N2_UNFUSED and BOWTIE_TPU_PROF switches.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -176,13 +180,50 @@ def derive_b_jobs_plain(out_a: dict, gated: torch.Tensor,
     return jobs[:, :J].to(torch.int32).contiguous()
 
 
+# K9's launch shape (csrc/jobs.cu kLaneWarps, lane_stride, kMaxShared): a
+# warp a lane, LANE_WARPS lanes a block, each lane's [J, NJF] table built
+# in shared memory (shifted by up to 3 words to the output's 16-byte
+# boundaries, rounded to whole 16 bytes), at most MAX_SHARED bytes a block.
+LANE_WARPS = 4
+MAX_SHARED = 48 * 1024
+
+
+def derive_b_jobs_shape(B: int, J: int) -> dict:
+    """K9's launch for B lanes of J jobs, as csrc/jobs.cu
+    bt_derive_b_jobs makes it: threads a block, lanes a block, blocks and
+    the block's dynamic shared bytes.  Raises ValueError on a J whose
+    tables do not fit (J_B = 36 takes 16,768 bytes)."""
+    if not 0 <= B < 1 << 31:
+        raise ValueError(f"{B} lanes: K9 counts lanes in int32")
+    shared = LANE_WARPS * 4 * ((J * NJF + 6) // 4 * 4)
+    if J < 1 or shared > MAX_SHARED:
+        raise ValueError(f"K9 holds {LANE_WARPS} tables of J jobs in "
+                         f"{MAX_SHARED} bytes of shared memory: J = {J} "
+                         "does not fit")
+    return dict(threads=LANE_WARPS * 32, lanes_a_block=LANE_WARPS,
+                blocks=-(-B // LANE_WARPS), dynamic_shared=shared)
+
+
+@functools.cache
+def _check_b_shape(so) -> None:
+    """Raise unless the library `so`'s K9 launches the shape
+    derive_b_jobs_shape describes (once a library)."""
+    if (so.bt_jobs_lane_warps() != LANE_WARPS
+            or so.bt_jobs_max_shared() != MAX_SHARED
+            or so.bt_jobs_b_shared(J_B)
+            != derive_b_jobs_shape(1, J_B)["dynamic_shared"]):
+        raise RuntimeError("csrc/jobs.cu and align/n_device.py disagree on "
+                           "K9's launch shape")
+
+
 def derive_b_jobs(out_a: dict, gated: torch.Tensor, base_qual: torch.Tensor,
                   base_plen: torch.Tensor, qual_rounds: torch.Tensor, *,
                   J: int, jrc: int, n: int, s: int, qt: int, maxbts: int,
                   maq: bool, norc: bool, nofw: bool) -> torch.Tensor:
-    """K9: derive_b_jobs_plain's table.  Launches csrc/dfs.cu's
-    derive_b_jobs_kernel on CUDA tensors, one thread per lane, which
-    zeroes its J rows and writes the lane's jobs in slot order."""
+    """K9: derive_b_jobs_plain's table.  Launches csrc/jobs.cu's
+    derive_b_jobs_kernel on CUDA tensors, a warp per lane
+    (derive_b_jobs_shape), which builds the lane's J rows in shared memory,
+    its jobs in slot order, and stores them in 16-byte stores."""
     a = {k: out_a[k] for k in _A_KEYS}
     if kernels.all_on_cpu(*a.values(), gated, base_qual, base_plen,
                           qual_rounds):
@@ -207,9 +248,11 @@ def derive_b_jobs(out_a: dict, gated: torch.Tensor, base_qual: torch.Tensor,
             or a["part_refc"].shape[1:] != (3 * P_MAX,)):
         raise ValueError("launch A's outputs, gated and the base arrays "
                          "disagree on their shapes")
+    derive_b_jobs_shape(B, J)
     out = torch.empty((B, J, NJF), dtype=torch.int32, device=dev)
     if B:
         _check_layout()
+        _check_b_shape(kernels.lib())
         kernels.launch("derive_b_jobs", "bt_derive_b_jobs",
                        *(a[k].data_ptr() for k in _A_KEYS),
                        gated.data_ptr(), base_qual.data_ptr(),

@@ -1,12 +1,11 @@
-// The GreedyDFS machine (-v 1/2, and the -n launches): K6 row derivation,
-// K7 the state machine, K8 dense packing of its hit and partial rows, K9
-// the -n launch-B job table.
-// Built with exact.cu by bowtie_tpu_torch/kernels.py and called through
-// the plain C entry points at the bottom.
+// The GreedyDFS machine (-v 1/2, and the -n launches): K7 the state
+// machine and K8 dense packing of its hit and partial rows.  K6 and K9,
+// which build the machine's job table, are in jobs.cu; the table's layout
+// is dfs_layout.cuh.
+// Built with the other sources by bowtie_tpu_torch/kernels.py and called
+// through the plain C entry points at the bottom.
 //
 // Replaces:
-//   K6 bt_derive_rows <- bowtie_tpu/align/dfs_device.py:496 derive_rows_jit
-//                        (:412 _derive_rows_impl)
 //   K7 bt_dfs_machine <- dfs_device.py:1484 run_machine, :1812 run_chunk
 //                        (:1445 _machine_step), with K5 (:261 _rank4,
 //                        :303 _lf4pair) inlined from fm.cuh, and K8's
@@ -14,14 +13,11 @@
 //   K8 bt_dfs_pack    <- dfs_device.py:1874 _gather_rows, :1927
 //                        _fuse_parts_jit, :1954 _pack_all, and :2011
 //                        decode_hit_cols's hit gather
-//   K9 bt_derive_b_jobs <- bowtie_tpu/align/n_device.py:85
-//                        _derive_b_jobs_device (less its K6 tail)
-// Plain PyTorch versions, which these are held to: derive_rows_plain,
-// run_machine_plain (the lockstep form, step for step the JAX one) and
-// pack_hits_plain in bowtie_tpu_torch/align/dfs_device.py, and
-// derive_b_jobs_plain in bowtie_tpu_torch/align/n_device.py.  The lane
-// compaction of the JAX driver (:1830 _compact) has no counterpart: each
-// thread runs its own lane to the end and retires it.
+// Plain PyTorch versions, which these are held to: run_machine_plain
+// (the lockstep form, step for step the JAX one) and pack_hits_plain in
+// bowtie_tpu_torch/align/dfs_device.py.  The JAX version's lane
+// compaction (:1830 _compact) has no counterpart: each thread runs its own
+// lane to the end and retires it.
 //
 // K7 runs one thread per lane, one warp a block (8,192 lanes make 256
 // blocks on the card's 132 SMs).  The JAX version advances every lane one
@@ -58,8 +54,9 @@
 // arithmetic.  The pass order lets a lane take a RETF, POP, BR, ADV
 // chain in one pass, so a warp runs fewer bodies a transition; the lane
 // state kept out of local memory and the scans kept on chip shorten each
-// transition.  K6 is an elementwise copy, bound by bytes; K8 moves a few
-// MB and is bound by launch and host-sync latency (its note below).
+// transition.  K8 moves a few MB and is bound by launch and host-sync
+// latency (its note below).
+#include "dfs_layout.cuh"
 #include "fm.cuh"
 #include "lookback.cuh"
 
@@ -85,21 +82,9 @@ struct DfsArgs {
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int M_DONE = 0, M_JOB = 1, M_ADV = 2, M_BR = 3, M_POP = 4,
-              M_REP = 5, M_RETF = 6;
-constexpr int S_MAX = 6, H_MAX = 8, MM_SLOTS = 8, P_MAX = 32;
+constexpr int S_MAX = 6, H_MAX = 8, MM_SLOTS = 8;
 constexpr int HIT_W = 8 + 2 * MM_SLOTS;
 constexpr int32_t INF32 = 0x7FFFFFFF;
-
-// JOB_FIELDS order of bowtie_tpu_torch/align/dfs_device.py
-enum Field {
-    F_VALID, F_QLEN, F_EBWT_FW, F_FW, F_D5, F_D3, F_UNREV, F_REV1, F_REV2,
-    F_REV3, F_HAM0, F_REP_EXACTS, F_REP_PARTIALS, F_HH, F_MAX_BTS,
-    F_CONS_QUALS, F_QUAL_THRESH, F_RESET_RNG, F_NS_GATE, F_NS_FTAB,
-    F_MAQ_ROUND, F_NPREMUT, F_PREMUT_POS0, F_PREMUT_POS1, F_PREMUT_POS2,
-    F_PREMUT_REFC0, F_PREMUT_REFC1, F_PREMUT_REFC2, F_COLLECT, NJF
-};
 
 // K7's launch shape (dfs_device.machine_shape mirrors it): one warp a
 // block, so that 8,192 lanes make 256 blocks over the 132 SMs; the
@@ -1064,56 +1049,6 @@ dfs_machine_kernel(const DfsArgs args) {
     a.steps[b] = (int32_t)t;
 }
 
-// K6: one thread per (lane, job) row; derive_rows_plain's arithmetic.
-__global__ void __launch_bounds__(kThreads)
-derive_rows_kernel(const int32_t* __restrict__ scal,
-                   const int8_t* __restrict__ codes,
-                   const int8_t* __restrict__ qual,
-                   const int32_t* __restrict__ plen, int B, int J, int L,
-                   int fc, int32_t* __restrict__ out,
-                   int8_t* __restrict__ qqp) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= B * J) return;
-    const int b = r / J;
-    const int32_t* f = scal + (size_t)r * NJF;
-    int32_t* o = out + (size_t)r * NJF;
-    for (int k = 0; k < NJF; ++k) o[k] = f[k];
-    const int32_t qs = f[F_QLEN], pl = plen[b];
-    const bool rev = f[F_FW] == f[F_EBWT_FW], comp = f[F_FW] == 0;
-    const int8_t* cb = codes + (size_t)b * L;
-    const int8_t* qb = qual + (size_t)b * L;
-    int8_t* row = qqp + (size_t)r * 3 * L;
-    int32_t nsc = 0, p1 = -1, p2 = -1, p3 = -1, ns_ftab = 0;
-    for (int i = 0; i < L; ++i) {
-        int32_t code = 4, qv = 0;
-        if (i < qs) {
-            int32_t t = (rev ? qs - 1 - i : pl - qs + i) % L;
-            if (t < 0) t += L;
-            code = cb[t];
-            qv = qb[t];
-            if (comp && code < 4) code = 3 - code;
-        }
-        for (int k = 0; k < 3; ++k)
-            if (f[F_NPREMUT] > k && i == qs - 1 - f[F_PREMUT_POS0 + k])
-                code = f[F_PREMUT_REFC0 + k];
-        int32_t pen = qv;
-        if (f[F_MAQ_ROUND] > 0) pen = min(30, ((qv + 5) / 10) * 10);
-        if (code == 4 && i < qs && i < f[F_REV3]) {
-            nsc += 1;
-            if (nsc == 1) p1 = i;
-            if (nsc == 2) p2 = i;
-            if (nsc == 3) p3 = i;
-        }
-        if (i < fc && code == 4 && i < qs) ns_ftab += 1;
-        row[i] = (int8_t)code;
-        row[L + i] = (int8_t)min(max(qv, 0), 127);
-        row[2 * L + i] = (int8_t)min(max(pen, 0), 127);
-    }
-    o[F_NS_GATE] = ((p1 >= 0 && p1 < f[F_UNREV]) || (p2 >= 0 && p2 < f[F_REV1])
-                    || (p3 >= 0 && p3 < f[F_REV2]) || nsc > 3) ? 1 : 0;
-    o[F_NS_FTAB] = ns_ftab;
-}
-
 // K8: pack_hits_plain's function in one launch.  A block takes the next
 // tile of kPackLanes lanes from the counter, writes each lane's nh_eff (0
 // under overflow), scans nh_eff and npart over the tile and takes the
@@ -1227,111 +1162,6 @@ dfs_pack_kernel(const int32_t* __restrict__ hits,
     }
 }
 
-// K9: launch B's job table (-n mode) from launch A's outputs, one thread
-// per lane; derive_b_jobs_plain's arithmetic (bowtie_tpu_torch/align/
-// n_device.py).  The thread zeroes its lane's J rows, then writes one
-// extension job per partial of the rc block (slots whose job is jrc) and
-// the rc half-and-half job, then the same for the fw block, in slot
-// order.  It reads the lane's counted partial rows and writes the whole
-// [J][NJF] table, so it is bound by the bytes of the table it writes.
-__device__ __forceinline__ void b_common(int32_t* o, int32_t plen,
-                                         bool is_rc, int32_t maxbts,
-                                         int32_t qt, int32_t maq) {
-    o[F_VALID] = 1;
-    o[F_QLEN] = plen;
-    o[F_FW] = is_rc ? 0 : 1;
-    o[F_EBWT_FW] = is_rc ? 1 : 0;
-    o[F_REP_EXACTS] = 1;
-    o[F_MAX_BTS] = maxbts;
-    o[F_CONS_QUALS] = 1;
-    o[F_QUAL_THRESH] = qt;
-    o[F_MAQ_ROUND] = maq;
-}
-
-__global__ void __launch_bounds__(kThreads)
-derive_b_jobs_kernel(const int32_t* __restrict__ result,
-                     const uint8_t* __restrict__ overflow,
-                     const int32_t* __restrict__ mode,
-                     const int32_t* __restrict__ npart,
-                     const int32_t* __restrict__ part_job,
-                     const int32_t* __restrict__ part_n,
-                     const int32_t* __restrict__ part_pos,
-                     const int32_t* __restrict__ part_refc,
-                     const uint8_t* __restrict__ gated,
-                     const int8_t* __restrict__ qual,
-                     const int32_t* __restrict__ plen_a,
-                     const int32_t* __restrict__ qual_rounds, int B, int L,
-                     int J, int jrc, int n, int s, int qt, int maxbts,
-                     int maq, int norc, int nofw, int32_t* __restrict__ out) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    int32_t* lane = out + (size_t)b * J * NJF;
-    for (int k = 0; k < J * NJF; ++k) lane[k] = 0;
-    const bool active = result[b] == 0 && !overflow[b] && mode[b] == M_DONE
-        && !gated[b] && n > 0;
-    if (!active) return;
-    const int32_t plen = plen_a[b];
-    const int32_t qs = min(plen, s);
-    const int np = min(npart[b], P_MAX);
-    const int32_t* pj = part_job + (size_t)b * P_MAX;
-    int nrc = 0;
-    for (int t = 0; t < np; ++t) nrc += pj[t] == jrc;
-    const int nfw = np - nrc;
-    const bool hh_rc = n >= 2 && !norc, hh_fw = n >= 2 && !nofw;
-    const int fw_base = nrc + (hh_rc ? 1 : 0);
-    const int8_t* q = qual + (size_t)b * L;
-    // the extension jobs, rc block then fw block, each in slot order
-    for (int blk = 0; blk < 2; ++blk) {
-        const bool is_rc = blk == 0;
-        if (is_rc ? norc : nofw) continue;
-        int j = is_rc ? 0 : fw_base;
-        const int j0 = j;
-        for (int t = 0; t < np; ++t) {
-            if ((pj[t] == jrc) != is_rc) continue;
-            if (j < J) {
-                int32_t* o = lane + (size_t)j * NJF;
-                const size_t p = (size_t)b * P_MAX + t;
-                const int32_t pn = part_n[p];
-                b_common(o, plen, is_rc, maxbts, qt, maq);
-                o[F_UNREV] = o[F_REV1] = o[F_REV2] = o[F_REV3] = qs;
-                int32_t ham0 = 0;
-                for (int k = 0; k < 3 && k < pn; ++k) {
-                    const int32_t pos = part_pos[3 * p + k];
-                    const int32_t c = min(max(pos, 0), L + 3);
-                    const int32_t mq = c < L ? q[c] : 0;
-                    ham0 += maq ? qual_rounds[min(max(mq, 0), 255)] : mq;
-                    o[F_PREMUT_POS0 + k] = plen - 1 - pos;
-                    o[F_PREMUT_REFC0 + k] = part_refc[3 * p + k];
-                }
-                o[F_HAM0] = ham0;
-                o[F_RESET_RNG] = j == j0 ? 1 : 0;
-                o[F_NPREMUT] = pn;
-            }
-            ++j;
-        }
-    }
-    // the half-and-half jobs (search_seeded_phase3.c:29-92 setOffs)
-    const int32_t q5 = (qs >> 1) + (qs & 1);
-    for (int blk = 0; blk < 2; ++blk) {
-        const bool is_rc = blk == 0;
-        if (!(is_rc ? hh_rc : hh_fw)) continue;
-        const int j = is_rc ? nrc : fw_base + nfw;
-        if (j >= J) continue;
-        int32_t* o = lane + (size_t)j * NJF;
-        b_common(o, plen, is_rc, maxbts, qt, maq);
-        o[F_D5] = q5;
-        o[F_D3] = qs;
-        o[F_UNREV] = 0;
-        o[F_REV1] = n <= 2 ? q5 : 0;
-        o[F_REV2] = n < 3 ? qs : q5;
-        o[F_REV3] = qs;
-        o[F_HH] = 1;
-        o[F_RESET_RNG] = 1;
-    }
-}
-
-inline dim3 grid_for(long n) { return dim3((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" {
@@ -1360,16 +1190,6 @@ int bt_dfs_lane_bytes(int L, int onchip) {
     return 4 * lane_words(L, onchip != 0);
 }
 
-int bt_derive_rows(const void* scal, const void* codes, const void* qual,
-                   const void* plen, int B, int J, int L, int fc, void* out,
-                   void* qqp, void* stream) {
-    derive_rows_kernel<<<grid_for((long)B * J), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (const int32_t*)scal, (const int8_t*)codes, (const int8_t*)qual,
-        (const int32_t*)plen, B, J, L, fc, (int32_t*)out, (int8_t*)qqp);
-    return (int)cudaGetLastError();
-}
-
 // Scratch words K8 needs for B lanes; the wrapper allocates them zeroed
 // once and every call leaves them zeroed.
 int bt_dfs_pack_scratch_words(int B) {
@@ -1389,26 +1209,6 @@ int bt_dfs_pack(const void* hits, const void* nhits, const void* overflow,
         (const int32_t*)part_pos, (const int32_t*)part_refc, B,
         (int32_t*)nh_eff, (int32_t*)hout, (int32_t*)pout,
         (unsigned long long*)scratch);
-    return (int)cudaGetLastError();
-}
-
-int bt_derive_b_jobs(const void* result, const void* overflow,
-                     const void* mode, const void* npart,
-                     const void* part_job, const void* part_n,
-                     const void* part_pos, const void* part_refc,
-                     const void* gated, const void* qual, const void* plen,
-                     const void* qual_rounds, int B, int L, int J, int jrc,
-                     int n, int s, int qt, int maxbts, int maq, int norc,
-                     int nofw, void* out, void* stream) {
-    derive_b_jobs_kernel<<<grid_for(B), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const int32_t*)result, (const uint8_t*)overflow,
-        (const int32_t*)mode, (const int32_t*)npart,
-        (const int32_t*)part_job, (const int32_t*)part_n,
-        (const int32_t*)part_pos, (const int32_t*)part_refc,
-        (const uint8_t*)gated, (const int8_t*)qual, (const int32_t*)plen,
-        (const int32_t*)qual_rounds, B, L, J, jrc, n, s, qt, maxbts, maq,
-        norc, nofw, (int32_t*)out);
     return (int)cudaGetLastError();
 }
 

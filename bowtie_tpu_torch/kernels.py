@@ -23,8 +23,8 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _LIB = os.path.join(_BUILD_DIR, "libbtkernels.so")
-SOURCES = ("exact.cu", "dfs.cu", "best.cu", "sa.cu", "ilv.cu")
-HEADERS = ("fm.cuh", "lookback.cuh")
+SOURCES = ("exact.cu", "dfs.cu", "jobs.cu", "best.cu", "sa.cu", "ilv.cu")
+HEADERS = ("fm.cuh", "lookback.cuh", "dfs_layout.cuh")
 
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
@@ -159,6 +159,15 @@ _SIGNATURES = {
     #  part_refc, gated, qual, plen, qual_rounds, B, L, J, jrc, n, s, qt,
     #  maxbts, maq, norc, nofw, out, stream)
     "bt_derive_b_jobs": [_P] * 12 + [ctypes.c_int] * 11 + [_P, _P],
+    # () -> K6's warps a block and rows a warp, K9's warps a block and
+    # most shared bytes; (J) -> K9's shared bytes a block
+    "bt_jobs_row_warps": [],
+    "bt_jobs_rows_per_warp": [],
+    "bt_jobs_lane_warps": [],
+    "bt_jobs_max_shared": [],
+    "bt_jobs_b_shared": [ctypes.c_int],
+    # (0: K6, 1: K9) -> the kernel's local bytes per thread
+    "bt_jobs_local_bytes": [ctypes.c_int],
     # (args, threads, stream); BestArgs is align/best_device.py's
     "bt_best_machine": [_P, ctypes.c_int, _P],
     # () -> K10's most lanes a block, widest on-chip L, arguments' bytes

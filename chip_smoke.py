@@ -104,7 +104,11 @@ Phases, each printing one JSON line:
              -k 1; its bytes are the lanes' scalars, their counted partial
              rows and the [B, 36, NJF] table it writes (k9_bytes).  Launch
              B's K7 is timed under each policy (median of 10), its
-             per-lane transitions summarised.
+             per-lane transitions summarised.  Then at the CLI's shape
+             (jobs_cli_shape): -n 2 -k 1 launch A on the first 8,192
+             reads, K9 on its 8,192 lanes and K6 on the launch-B table it
+             builds (8,192 x 36 rows, L 40), each held exactly to its
+             plain version and timed: the kernels line's K6 and K9 rows.
 9. cli_n   - 50,000 such reads through the CLI on the card, bowtie's
              default command (no mode flag: -n 2 -l 28 -e 70 -k 1,
              verbose) and -n 2 -a -m 3 -S, each counted from zero and
@@ -229,10 +233,11 @@ Phases, each printing one JSON line:
              card: not a scaling figure).
 
 Phase device also prints the local memory per thread of K10's two
-instantiations (K10 and K10r; K14) and of K13, and ptxas's lines about
-them and about K7's two layouts (stack frame, spills, registers); K13's
-entry in the kernels line repeats its own, with its launch shape on the
-CLI's batch.  Then the
+instantiations (K10 and K10r; K14), of K13 and of K6 and K9 (which must
+be 0), and ptxas's lines about them and about K7's two layouts (stack
+frame, spills, registers); K13's entry in the kernels line repeats its
+own, with its launch shape on the CLI's batch, and so do K6's and K9's,
+timed at the CLI's shape.  Then the
 {"kernels": [...]} line (launches: the CLI runs, cli build included; K3
 dense's library-run launches beside its 0; K15's and the K3 remainder's,
 which no CLI path runs, phases kernels' and mesh's), the seconds of
@@ -330,6 +335,7 @@ SECTOR = 32
 READ_LEN = 36
 SOURCE = "bowtie_tpu_torch/csrc/exact.cu"
 DFS_SOURCE = "bowtie_tpu_torch/csrc/dfs.cu"
+JOBS_SOURCE = "bowtie_tpu_torch/csrc/jobs.cu"
 NO_LIBRARY = "n/a: no single PyTorch call computes an FM backward search"
 NO_LIBRARY_K6 = ("n/a: no single PyTorch call derives the by-depth rows "
                  "and N gates")
@@ -1174,7 +1180,7 @@ def dfs_case(name, pair, reads, v, n_k, m_max, max_steps, device,
     hits3 = out["hits"].view(B, dfs.H_MAX, dfs.HIT_W)
     stats = {
         "K6": dict(
-            name="K6 derive_rows", route="cuda", source=DFS_SOURCE,
+            name="K6 derive_rows", route="cuda", source=JOBS_SOURCE,
             replaces="bowtie_tpu/align/dfs_device.py:496",
             ms=time_ms(lambda: dfs.derive_rows(*base, fc), device, 20),
             plain_ms=k6_plain_ms,
@@ -1622,7 +1628,7 @@ def n_case(name, pair, reads, n, s, qt, maq, n_k, m_max, device,
                k7_b_lanes=lane_stats(steps_b.cpu().numpy()))
     nbytes9 = k9_bytes(out_a, gated, base[2], scal_b)
     stat = dict(
-        name="K9 derive_b_jobs", route="cuda", source=DFS_SOURCE,
+        name="K9 derive_b_jobs", route="cuda", source=JOBS_SOURCE,
         replaces="bowtie_tpu/align/n_device.py:85",
         ms=time_ms(lambda: nd.derive_b_jobs(*bargs, **bkw), device, 20),
         plain_ms=k9_plain_ms,
@@ -1632,10 +1638,82 @@ def n_case(name, pair, reads, n, s, qt, maq, n_k, m_max, device,
     return row, stat
 
 
+def jobs_cli_shape(pair, reads, device):
+    """K9 and K6 at the CLI's shape: -n 2 -k 1 launch A on one CLI batch
+    (8,192 reads, L 40) on the card, then K9 (8,192 lanes) and K6 on the
+    launch-B table it builds (8,192 x 36 rows, the largest K6 launch of
+    any CLI run), each held exactly to its plain version on the same
+    inputs and timed (median of 20), with its bytes, bound, ptxas lines,
+    local bytes and launch shape.  -> {"K6": ..., "K9": ...}: the
+    kernels line's rows."""
+    fc = pair.ftab_chars
+    B = len(reads)
+    jobs, _, gated_np, jrc, _ = build_n_jobs_a_vec(
+        reads, 2, 28, 70, N_MAXBTS, True, False, False, DFS_L)
+    base = [torch.from_numpy(np.ascontiguousarray(jobs[k])).to(device)
+            for k in ("base_codes", "base_qual", "base_plen")]
+    seeds = torch.from_numpy(
+        fill_seed_caches(reads, 0).astype(np.int64)).to(device)
+    out_a, _ = dfs.run_machine(
+        pair, dfs.upload_jobs(jobs, fc, device), seeds,
+        torch.zeros(B, dtype=torch.int32, device=device), n_k=1,
+        m_max=dfs.INF32, max_steps=N_STEPS)
+    qr = torch.from_numpy(QUAL_ROUNDS.astype(np.int32)).to(device)
+    bargs = (out_a, torch.from_numpy(gated_np).to(device), base[1],
+             base[2], qr)
+    bkw = dict(J=nd.J_B, jrc=jrc, n=2, s=28, qt=70, maxbts=N_MAXBTS,
+               maq=True, norc=False, nofw=False)
+    scal_b = nd.derive_b_jobs(*bargs, **bkw)
+    pscal_b, k9_plain_ms = time_once(
+        lambda: nd.derive_b_jobs_plain(*bargs, **bkw), device)
+    err9 = max_abs_err([(scal_b, pscal_b)])
+    require(err9 == 0, "K9 at the CLI's shape disagrees with its plain "
+            "version")
+    k6in = (scal_b, *base, fc)
+    scal6, qqp6 = dfs.derive_rows(*k6in)
+    (pscal6, pqqp6), k6_plain_ms = time_once(
+        lambda: dfs.derive_rows_plain(*k6in), device)
+    err6 = max_abs_err([(scal6, pscal6), (qqp6, pqqp6)])
+    require(err6 == 0, "K6 at the CLI's shape disagrees with its plain "
+            "version")
+    local = dfs.jobs_local_bytes()
+    require(all(v == 0 for v in local.values()),
+            f"K6/K9 have a stack: {local} local bytes")
+    nbytes6 = _nbytes(*k6in[:4], scal6, qqp6)
+    nbytes9 = k9_bytes(out_a, bargs[1], base[2], scal_b)
+    valid = scal_b[..., dfs.JOB_FIELDS.index("valid")]
+    return {
+        "K6": dict(
+            name="K6 derive_rows", route="cuda", source=JOBS_SOURCE,
+            replaces="bowtie_tpu/align/dfs_device.py:496",
+            ms=time_ms(lambda: dfs.derive_rows(*k6in), device, 20),
+            plain_ms=k6_plain_ms,
+            **bounds(nbytes6, 0, 0, 0, nbytes6 // SECTOR),
+            library_ms=None, library=NO_LIBRARY_K6, max_abs_err=err6,
+            policy="-n 2 -k 1 launch B, one CLI batch", lanes=B,
+            jobs=nd.J_B, L=DFS_L, rows=B * nd.J_B, bytes=nbytes6,
+            shape=dfs.derive_rows_shape(B, nd.J_B),
+            ptxas=k7_ptxas("derive_rows"),
+            local_bytes=local["derive_rows"]),
+        "K9": dict(
+            name="K9 derive_b_jobs", route="cuda", source=JOBS_SOURCE,
+            replaces="bowtie_tpu/align/n_device.py:85",
+            ms=time_ms(lambda: nd.derive_b_jobs(*bargs, **bkw), device, 20),
+            plain_ms=k9_plain_ms,
+            **bounds(nbytes9, 0, 0, 0, -(-nbytes9 // SECTOR)),
+            library_ms=None, library=NO_LIBRARY_K9, max_abs_err=err9,
+            policy="-n 2 -k 1, one CLI batch", lanes=B, jobs=nd.J_B,
+            valid_jobs=int(valid.sum()), bytes=nbytes9,
+            shape=nd.derive_b_jobs_shape(B, nd.J_B),
+            ptxas=k7_ptxas("derive_b_jobs"),
+            local_bytes=local["derive_b_jobs"])}
+
+
 def phase_n(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw):
     """-n's launch B on the card: K9 and launch B's K7 held to their
     plain versions under -n 2 -k 1, -n 3 -l 20 -a -m 3 and -n 1
-    --nomaqround -e 40; K9 timed on the first."""
+    --nomaqround -e 40; K9 timed on the first; K9 and K6 at the CLI's
+    shape (jobs_cli_shape)."""
     genome_chars = CHARS[genome].tobytes()
     reads = n_reads(rng, genome, rep_starts, seg_len, N_READS,
                     os.path.join(work, "n.fq"))
@@ -1649,8 +1727,12 @@ def phase_n(rng, work, device, genome, rep_starts, seg_len, idx, idx_bw):
         stat = stat or st
     require(all(c["b_jobs_premut"] > 0 for c in cases.values()),
             "a policy derived no extension job")
-    emit({"phase": "n", "cases": cases, "ms": {"K9": stat["ms"]}})
-    return {"K9": stat}, {k: c["k7_b_ms"] for k, c in cases.items()}
+    shape = jobs_cli_shape(pair, reads[:CLI_BATCH], device)
+    shape["K9"]["at_16k_lanes"] = {k: stat[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bytes", "lanes", "policy")}
+    emit({"phase": "n", "cases": cases, "ms": {"K9": stat["ms"]},
+          "cli_shape": shape})
+    return shape, {k: c["k7_b_ms"] for k, c in cases.items()}
 
 
 GOLD = os.path.join(ROOT, "tests", "golden", "small_index", "small_oracle")
@@ -3109,7 +3191,11 @@ def main() -> int:
           "dfs_machine_ptxas": k7_ptxas(),
           # and of K13
           "ilv_kernel_ptxas": k7_ptxas("ilv_kernel"),
-          "ilv_kernel_local_bytes": ilv.ilv_local_bytes()})
+          "ilv_kernel_local_bytes": ilv.ilv_local_bytes(),
+          # and of K6 and K9
+          "jobs_ptxas": {k: k7_ptxas(k) for k in ("derive_rows",
+                                                   "derive_b_jobs")},
+          "jobs_local_bytes": dfs.jobs_local_bytes()})
     phase_s = {}
 
     def timed(name, fn, *a):
@@ -3141,6 +3227,10 @@ def main() -> int:
                       CLI_READS, gpu))
     n_stats, k7_b_ms = timed("n", phase_n, rng, work, device, genome,
                              rep_starts, seg_len, idx, idx_bw)
+    # K6's line: the CLI's largest launch (launch B of one batch); phase
+    # dfs's -v 2 -a -m 3 table beside it
+    n_stats["K6"]["at_dfs_case"] = {k: stats["K6"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "rows")}
     stats.update(n_stats)
     stats["K7"]["launch_b_ms"] = k7_b_ms
     runs.update(timed("cli_n", phase_cli_n, rng, work, device, base, idx,

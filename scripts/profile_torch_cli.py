@@ -21,7 +21,10 @@ time on the card over that run's wall time) and its split by kernel
 cProfile tables.  --kernels first times K2, K3 walk-left and K4 as the
 CLI's exact gate runs them, on one CLI batch (8,192 reads, 16,384
 strands) and on 2^20 reads (2^21 strands, chip_smoke.py phase kernels'
-size), medians of 20 CUDA-event timings.
+size), medians of 20 CUDA-event timings, and records the BWT rows of
+every K3 walk-left launch of the configurations' timed runs: for each, its
+row count, walk steps and bound (chip_smoke.py's K3 walk bound, the steps
+counted by resolve_rows_plain on the card) and K3's time on those rows.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
+from bowtie_tpu_torch.align import pipeline  # noqa: E402
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
-    exact_ranges, resolve_rows)
+    exact_ranges, resolve_rows, resolve_rows_plain)
 from bowtie_tpu_torch.align.pipeline import one_row  # noqa: E402
 from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
 from bowtie_tpu_torch.cli import align as cli  # noqa: E402
@@ -94,6 +98,39 @@ def kernel_batch_ms(rng, genome, rep, base, n_reads):
             "K3w_ms": cs.time_ms(lambda: resolve_rows(fm, rows), dev, 20),
             "K4_ms": cs.time_ms(lambda: one_row(fm, mat, lens2, seeds), dev,
                                 20)}
+
+
+def k3_walk_launches(run_fn):
+    """Run run_fn() with the CLI's K3 calls (align/pipeline.py) recorded;
+    -> one dict per walk-left launch: its rows, walk steps, the bound
+    chip_smoke.py gives K3 walk for them, and K3's time on them (median of
+    20), then run_fn's result."""
+    real, seen = pipeline.resolve_rows, []
+
+    def rec(fm, rows):
+        if fm.sa is None:
+            seen.append((fm, rows.clone()))
+        return real(fm, rows)
+    pipeline.resolve_rows = rec
+    try:
+        res = run_fn()
+    finally:
+        pipeline.resolve_rows = real
+    out = []
+    dev = torch.device("cuda")
+    for fm, rows in seen:
+        m = rows.numel()
+        walk = torch.zeros(2, m, dtype=torch.int64, device=dev)
+        resolve_rows_plain(fm, rows, walk)
+        steps, words = (int(x) for x in walk.sum(1))
+        b = cs.bounds(cs._nbytes(fm.bwt, fm.occ, fm.offs, rows) + 9 * m,
+                      steps, steps, words, 2 * steps + m)
+        out.append(dict(rows=m, walk_steps=steps, max_walk=int(walk[0].max())
+                        if m else 0, bound_ms=b["bound_ms"],
+                        bound_by=b["bound_by"],
+                        ms=cs.time_ms(lambda: resolve_rows(fm, rows), dev,
+                                      20)))
+    return out, res
 
 
 def run(args) -> float:
@@ -158,6 +195,9 @@ def main() -> int:
                "pairs" if kind == "pairs" else "reads": n, "wall_s": wall,
                "per_s": n / wall,
                "oracle_fallback_lanes": dfs.FALLBACKS["lanes"]}
+        if args.kernels and kind != "pairs":
+            row["k3_walk_launches"], _ = k3_walk_launches(
+                lambda: run(argv))
         if not args.no_cprofile:
             prof = cProfile.Profile()
             prof.enable()

@@ -1,7 +1,7 @@
 // A stand-in for CUDA's cuda_runtime.h that lets a kernel source of
 // bowtie_tpu_torch/csrc build with g++ and run on the CPU, so that the CPU
 // tests can hold a kernel to its plain version (tests/test_torch_ilv_shape.py
-// builds csrc/ilv.cu with it).
+// builds csrc/ilv.cu with it, tests/test_torch_jobs_shape.py csrc/jobs.cu).
 //
 // A launch `kernel<<<grid, block, shared, stream>>>(args)`, rewritten by the
 // test to `emu_launch(kernel, grid, block, shared, stream, args)`, runs the
@@ -11,7 +11,8 @@
 // array there).  __syncthreads is a std::barrier over the block;
 // __syncwarp, __ballot_sync and __shfl_sync are a std::barrier over the
 // threads of the mask in the caller's warp and an exchange array of one
-// word per lane.  Only what csrc/ilv.cu and csrc/fm.cuh use is here.
+// word per lane.  Only what csrc/ilv.cu, csrc/fm.cuh and csrc/jobs.cu use
+// is here.
 #pragma once
 
 #include <barrier>
@@ -40,6 +41,9 @@ struct dim3 {
 struct uint4 {
     uint32_t x, y, z, w;
 };
+struct alignas(16) int4 {
+    int32_t x, y, z, w;
+};
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1;
@@ -60,6 +64,8 @@ template <class T>
 T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 struct EmuGroup {
     std::unique_ptr<std::barrier<>> bar;

@@ -1,4 +1,5 @@
-"""The CUDA kernels (csrc/exact.cu, csrc/dfs.cu, csrc/best.cu) against
+"""The CUDA kernels (csrc/exact.cu, csrc/dfs.cu, csrc/jobs.cu, csrc/best.cu,
+csrc/ilv.cu, csrc/sa.cu) against
 their plain PyTorch versions, on the card: K2, K3 (walk and dense SA) and
 K4 must agree element for element, also on an index whose SA sample is
 thinned so that most walks pass MAX_WALK and end with ok=False; K15 (K2
@@ -7,7 +8,9 @@ two-entry mesh on one card; K12 (K2
 with a per-lane choice of the forward or the mirror index); K6, K7 and
 K8 (the DFS machine) on -v 1 / -v 2 / -n launch-A job tables, dense and
 walk-left; K9 (the -n launch-B job table) and K6/K7 on the tables it
-derives; K7 at the edges of its launch shape and layouts (lane counts
+derives; K6 and K9 of csrc/jobs.cu with no stack, K6 on tables of 100
+and 250 bp reads (L 128, 256), K9 on lanes that all take 32 partials at
+-n 1-3, --norc and --nofw, on 1, 5, 33 and 8,192 lanes; K7 at the edges of its launch shape and layouts (lane counts
 around the warp, every lane overflowing H_MAX, S_MAX or P_MAX, a long
 walk-left lane, a budget that stops lanes mid-search, launch B with
 launch A's counts, L = 128, two mesh shards); K10 and K11 (the best-first machine) under -v and seeded
@@ -1168,3 +1171,101 @@ def test_k7_mesh_shards(card, k7_genome, tmp_path):
                              torch.from_numpy(c0).cuda(), **kw)
     for k in td.OUT_KEYS:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_jobs_kernels_have_no_stack(card):
+    """ptxas gives K6 and K9 (csrc/jobs.cu) no stack frame and no spills,
+    and the runtime reserves no local memory for them."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.utils.kdiag import ptxas_entry
+    kernels.lib()
+    with open(os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                           "build", "ptxas.txt")) as f:
+        report = f.read()
+    for name in ("derive_rows", "derive_b_jobs"):
+        lines = ptxas_entry(report, name)
+        frames = [ln for ln in lines if "stack frame" in ln]
+        assert len(frames) == 1, lines
+        assert frames[0].startswith("0 bytes stack frame, 0 bytes spill "
+                                    "stores, 0 bytes spill loads"), lines
+    assert td.jobs_local_bytes() == {"derive_rows": 0, "derive_b_jobs": 0}
+
+
+def _k6_hold(scal, codes, qual, plen, fc):
+    """K6 against its plain version on the card, byte for byte."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    kernels.reset_launches()
+    got = td.derive_rows(scal, codes, qual, plen, fc)
+    assert kernels.LAUNCHES["derive_rows"] == 1
+    want = td.derive_rows_plain(scal, codes, qual, plen, fc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("length,L", [(100, 128), (250, 256)])
+def test_k6_long_rows(card, k7_genome, tmp_path, length, L):
+    """K6 on the -v 2 and -n 2 launch-A tables of 2,048 reads of 100 and
+    250 bp with runs of Ns (L 128 and 256: the N tally crosses several
+    32-position chunks)."""
+    from bowtie_tpu_torch.align import dfs_device as td
+    from bowtie_tpu_torch.align import dfs_jobs as tj
+    g, starts, dense, _thin = k7_genome
+    rows = _k7_mix(g, starts, 2048, 11, length)
+    rng = np.random.default_rng(12)
+    for b in range(0, len(rows), 3):
+        s = int(rng.integers(0, length - 8))
+        rows[b, s:s + int(rng.integers(1, 9))] = 4
+    reads = _k7_reads(tmp_path / "r.fq", rows)
+    for jobs in (tj.build_v_jobs_vec(reads, 2, False, False, L)[0],
+                 tj.build_n_jobs_a_vec(reads, 2, 28, 70, 125, True, False,
+                                       False, L)[0]):
+        t = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
+            np.stack([jobs[f] for f in td.JOB_FIELDS], -1).astype(np.int32),
+            jobs["base_codes"], jobs["base_qual"], jobs["base_plen"])]
+        scal, _ = _k6_hold(*t, dense.ftab_chars)
+        assert int(scal[..., td.JOB_FIELDS.index("ns_gate")].sum()) > 0
+
+
+def _k9_full(B, L, seed):
+    """Launch-A outputs on which every lane takes jobs, 32 partials each
+    (job 3 or 4), 0-3 mutations inside 36-base reads."""
+    from bowtie_tpu_torch.align.backtrack_oracle import QUAL_ROUNDS
+    rng = np.random.default_rng(seed)
+    P = 32
+    a = {"result": np.zeros(B, np.int32), "overflow": np.zeros(B, bool),
+         "mode": np.zeros(B, np.int32), "npart": np.full(B, P, np.int32),
+         "part_job": rng.integers(3, 5, (B, P)).astype(np.int32),
+         "part_n": rng.integers(0, 4, (B, P)).astype(np.int32),
+         "part_pos": rng.integers(0, 36, (B, 3 * P)).astype(np.int32),
+         "part_refc": rng.integers(0, 4, (B, 3 * P)).astype(np.int32)}
+    a = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+    qual = torch.from_numpy(rng.integers(2, 41, (B, L)).astype(
+        np.int8)).cuda()
+    codes = torch.from_numpy(rng.integers(0, 5, (B, L)).astype(
+        np.int8)).cuda()
+    return (a, torch.zeros(B, dtype=torch.bool, device="cuda"), qual,
+            torch.full((B,), 36, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(QUAL_ROUNDS.astype(np.int32)).cuda()), codes
+
+
+@pytest.mark.parametrize("B,n,norc,nofw", [
+    (8192, 1, False, False), (8192, 2, False, False), (8192, 3, False, False),
+    (8192, 2, True, False), (8192, 2, False, True), (1, 2, False, False),
+    (5, 3, False, False), (33, 2, False, False)])
+def test_k9_full_lanes(card, B, n, norc, nofw):
+    """K9 on lanes that all take jobs, 32 partials each (every row of J_B
+    but the last used), then K6 on the table it builds, each equal to its
+    plain version; B = 1, 5, 33 leave the last block partly used."""
+    from bowtie_tpu_torch.align import n_device as tn
+    args, codes = _k9_full(B, 40, B + n)
+    kw = dict(J=tn.J_B, jrc=3, n=n, s=28, qt=70, maxbts=125, maq=True,
+              norc=norc, nofw=nofw)
+    kernels.reset_launches()
+    got = tn.derive_b_jobs(*args, **kw)
+    assert kernels.LAUNCHES["derive_b_jobs"] == 1
+    want = tn.derive_b_jobs_plain(*args, **kw)
+    assert torch.equal(got, want)
+    assert int(got[..., 0].sum()) > 0
+    _k6_hold(got, codes, args[2], args[3], 10)
+    with pytest.raises(ValueError):
+        tn.derive_b_jobs(*args, **dict(kw, J=200))
