@@ -1,5 +1,6 @@
 """Batched exact-match search (-v 0): K2 exact search and K3 resolve
-(and K3 masked by a valid flag, bwt_rows_offsets).
+(and K3 masked by a valid flag, bwt_rows_offsets), and the walk table
+that K3's and K4's walk-left steps read.
 
 Replaces the per-thread recursive path of search_exact.c +
 GreedyDFSRangeSource::backtrack (ebwt_search_backtrack.h:237-297) with a
@@ -17,14 +18,18 @@ reference's lockstep formulation, and is what the kernel is held to.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from .. import kernels
 from ..index.arrays import FMIndexArrays, u32
-from ..ops.fm import lf_plain, lf_row_compact_plain, words_needed
+from ..ops.fm import (lf_plain, lf_row_compact_plain, walk_words_needed,
+                      words_needed)
 
 MAX_WALK = 1024   # walk-left bound (ok=False past this)
+WALK_ROWS = 64    # rows per walk-table entry (csrc/fm.cuh kWalkRows)
 
 
 def right_align(reads: list[np.ndarray], pad_to: int | None = None
@@ -114,7 +119,8 @@ def resolve_rows_plain(fm: FMIndexArrays, rows: torch.Tensor,
     does; ok=False past MAX_WALK steps, with the offset computed from
     wherever the walk stopped.  If `work` is given ([2, N] int64), each
     row's walk steps (one rank each) are added to work[0] and the words
-    those ranks popcount (ops.fm.words_needed) to work[1]."""
+    those ranks popcount on the walk table (ops.fm.walk_words_needed) to
+    work[1]."""
     rows = rows.long()
     if fm.sa is not None:
         return u32(fm.sa[rows]), torch.ones_like(rows, dtype=torch.bool)
@@ -128,7 +134,7 @@ def resolve_rows_plain(fm: FMIndexArrays, rows: torch.Tensor,
             break
         ni = lf_row_compact_plain(fm, torch.where(done, 0, i))
         if work is not None:
-            work[1] += torch.where(done, 0, words_needed(i))
+            work[1] += torch.where(done, 0, walk_words_needed(i))
         i = torch.where(done, i, ni)
         jumps = torch.where(done, jumps, jumps + 1)
     at_z = i == fm.zoff
@@ -139,6 +145,79 @@ def resolve_rows_plain(fm: FMIndexArrays, rows: torch.Tensor,
     return off, finished
 
 
+def walk_table_plain(fm: FMIndexArrays) -> torch.Tensor:
+    """The walk table (int32 [2 * nblocks, 8]) that the kernels' walk-left
+    step reads (csrc/fm.cuh lf_walk): entry e holds the counts of codes
+    A, C, G, T in BWT rows [0, 64e), '$' at zoff counted as an A as occ
+    counts it, then the BWT words 4e..4e+3, the codes of rows
+    [64e, 64e + 64).  It depends on bwt, occ and zoff only."""
+    nb = fm.occ.shape[0] - 1
+    words = fm.bwt[:8 * nb].view(2 * nb, 4)
+    shifts = 2 * torch.arange(16, device=fm.bwt.device)
+    codes = (u32(words[0::2])[..., None] >> shifts) & 3   # first 64 rows
+    half = torch.stack([(codes == c).sum((1, 2)) for c in range(4)], 1)
+    occ = u32(fm.occ[:nb])
+    counts = torch.stack([occ, occ + half], 1).view(2 * nb, 4)
+    counts = torch.where(counts > 0x7FFFFFFF, counts - (1 << 32), counts)
+    return torch.cat([counts.to(torch.int32), words], 1)
+
+
+def walk_table(fm: FMIndexArrays) -> torch.Tensor:
+    """fm's walk table (walk_table_plain), built at first use by
+    csrc/exact.cu's walk_table_kernel on the card (the plain version for
+    an index on the CPU) and kept as fm.walk."""
+    if fm.walk is None or fm.walk.device != fm.device:
+        if kernels.on_cpu(fm):
+            fm.walk = walk_table_plain(fm)
+        else:
+            n = 2 * (fm.occ.shape[0] - 1)
+            walk = torch.empty((n, 8), dtype=torch.int32, device=fm.device)
+            kernels.launch("walk_table", "bt_walk_table", fm.bwt.data_ptr(),
+                           fm.occ.data_ptr(), n, walk.data_ptr(),
+                           device=fm.device)
+            fm.walk = walk
+    return fm.walk
+
+
+def walk_ptr(fm: FMIndexArrays):
+    """The walk table's device pointer for a kernel that walks on fm, or
+    None where fm has a dense SA (the kernel then gathers)."""
+    return None if fm.sa is not None else walk_table(fm).data_ptr()
+
+
+def walk_shape(n: int) -> dict:
+    """K3 walk's launch for n rows (csrc/exact.cu walk_shape): blocks
+    sized to the card, threads a block, and the rows of a warp's first
+    run (stripe)."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels.lib().bt_walk_shape(n, out)
+    if rc != 0:
+        raise RuntimeError(f"bt_walk_shape: CUDA error {rc}")
+    return dict(zip(("blocks", "threads", "stripe"), out))
+
+
+def _resolve(name: str, fm: FMIndexArrays, rows: torch.Tensor,
+             iters: torch.Tensor | None = None):
+    """Launch K3 on int64 rows [n] (n > 0), counted under `name`: the
+    dense-SA gather or the walk, whose warps' iterations go to `iters`
+    if given."""
+    n = rows.shape[0]
+    off = torch.empty(n, dtype=torch.int64, device=fm.device)
+    ok = torch.empty(n, dtype=torch.bool, device=fm.device)
+    if fm.sa is not None:
+        kernels.launch(name, "bt_resolve_sa", kernels.fm_view(fm),
+                       rows.data_ptr(), n, off.data_ptr(), ok.data_ptr(),
+                       device=fm.device)
+    else:
+        counter = torch.zeros(1, dtype=torch.int32, device=fm.device)
+        kernels.launch(name, "bt_resolve_walk", kernels.fm_view(fm),
+                       walk_ptr(fm), rows.data_ptr(), n, counter.data_ptr(),
+                       off.data_ptr(), ok.data_ptr(),
+                       None if iters is None else iters.data_ptr(),
+                       device=fm.device)
+    return off, ok
+
+
 def resolve_rows(fm: FMIndexArrays, rows: torch.Tensor):
     """K3: joined-text offsets (int64) and ok flags (bool) of int64 BWT
     rows [N], through the dense SA when fm has one, else by walking
@@ -147,16 +226,30 @@ def resolve_rows(fm: FMIndexArrays, rows: torch.Tensor):
         return resolve_rows_plain(fm, rows)
     kernels.check(rows, "rows", torch.int64, 1, fm.device)
     n = rows.shape[0]
-    off = torch.empty(n, dtype=torch.int64, device=fm.device)
-    ok = torch.empty(n, dtype=torch.bool, device=fm.device)
-    if n:
-        name, entry = (("resolve_rows_sa", "bt_resolve_sa")
-                       if fm.sa is not None
-                       else ("resolve_rows_walk", "bt_resolve_walk"))
-        kernels.launch(name, entry, kernels.fm_view(fm), rows.data_ptr(), n,
-                       off.data_ptr(), ok.data_ptr(), device=fm.device)
-    return off, ok
+    if not n:
+        return (torch.empty(0, dtype=torch.int64, device=fm.device),
+                torch.empty(0, dtype=torch.bool, device=fm.device))
+    return _resolve("resolve_rows_sa" if fm.sa is not None
+                    else "resolve_rows_walk", fm, rows)
 
+
+def resolve_rows_lanes(fm: FMIndexArrays, rows: torch.Tensor):
+    """resolve_rows's walk on the card, with each warp's iterations
+    (int32 [warps of walk_shape]): (off, ok, iters).  The rows' walk
+    steps over 32 lane slots times the warps' iterations is the warp
+    efficiency of its schedule."""
+    if fm.sa is not None or kernels.on_cpu(fm, rows):
+        raise ValueError("resolve_rows_lanes: the walk kernel on the card "
+                         "only")
+    kernels.check(rows, "rows", torch.int64, 1, fm.device)
+    n = rows.shape[0]
+    s = walk_shape(max(n, 1))
+    iters = torch.zeros(s["blocks"] * s["threads"] // 32, dtype=torch.int32,
+                        device=fm.device)
+    if not n:
+        return (torch.empty(0, dtype=torch.int64, device=fm.device),
+                torch.empty(0, dtype=torch.bool, device=fm.device), iters)
+    return (*_resolve("resolve_rows_walk", fm, rows, iters), iters)
 
 
 def bwt_rows_offsets_plain(fm: FMIndexArrays, rows: torch.Tensor,
@@ -181,13 +274,8 @@ def bwt_rows_offsets(fm: FMIndexArrays, rows: torch.Tensor,
     if valid.shape != rows.shape:
         raise ValueError(f"valid has shape {tuple(valid.shape)}, rows "
                          f"{tuple(rows.shape)}")
-    n = rows.shape[0]
     masked = torch.where(valid, rows, 0)
-    off = torch.empty(n, dtype=torch.int64, device=fm.device)
-    ok = torch.empty(n, dtype=torch.bool, device=fm.device)
-    if n:
-        entry = "bt_resolve_sa" if fm.sa is not None else "bt_resolve_walk"
-        kernels.launch("bwt_rows_offsets", entry, kernels.fm_view(fm),
-                       masked.data_ptr(), n, off.data_ptr(), ok.data_ptr(),
-                       device=fm.device)
+    if not rows.shape[0]:
+        return masked, valid.clone()
+    off, ok = _resolve("bwt_rows_offsets", fm, masked)
     return torch.where(valid, off, 0), ok & valid

@@ -16,7 +16,7 @@ from .. import kernels
 from ..index.arrays import FMIndexArrays, U32
 from ..index.ebwt_io import EbwtIndex
 from .exact import (exact_ranges, exact_ranges_plain, resolve_rows,
-                    resolve_rows_plain, right_align)
+                    resolve_rows_plain, right_align, walk_ptr)
 from .policy import KPolicy, ReadResult
 from .types import Hit
 from ..utils.rng import fill_seed_caches, next_u32
@@ -86,8 +86,9 @@ def one_row(fm: FMIndexArrays, mat: torch.Tensor, lens: torch.Tensor,
     out = torch.empty((3, n), dtype=torch.int64, device=fm.device)
     if n:
         kernels.launch("one_row", "bt_one_row", kernels.fm_view(fm),
-                       mat.data_ptr(), lens.data_ptr(), seeds2.data_ptr(),
-                       n, L, int(fm.sa is not None), out.data_ptr(),
+                       walk_ptr(fm), mat.data_ptr(), lens.data_ptr(),
+                       seeds2.data_ptr(), n, L, int(fm.sa is not None),
+                       out.data_ptr(),
                        device=fm.device)
     return out
 

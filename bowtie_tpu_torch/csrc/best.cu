@@ -7,7 +7,7 @@
 //   K10 bt_best_machine <- bowtie_tpu/align/best_device.py:638
 //                          _init_state_jit (the prologue) and :2224
 //                          run_chunk (:2173 _machine_step), with K1/K5
-//                          (rank4, lf4pair, lf_row) inlined from fm.cuh;
+//                          (rank4, lf4pair from fm.cuh, mapLF) inlined;
 //                          with `record` set, K10r, the record mode of the
 //                          paired-end recorder (:1030-1120 _step_main,
 //                          _record_range; the per-lane config bases
@@ -406,7 +406,7 @@ __device__ __forceinline__ int32_t pick_bot(const Ctx& x, int c) {
     return shw(x, kPickW + 4 + c);
 }
 
-// fm.cuh lf_row, the row's own code picked from the pick words (an
+// mapLF(i), the row's own code picked from the pick words (an
 // index into the block's words in registers would put them on the
 // stack)
 __device__ __forceinline__ uint32_t lf_row_picked(const Ctx& x,

@@ -284,7 +284,7 @@ __device__ __forceinline__ uint32_t pick_of(const Ctx& x, int j) {
     return shw(x, kPickW + j);
 }
 
-// fm.cuh lf_row, the row's own code picked from shared memory
+// mapLF(i), the row's own code picked from shared memory
 __device__ __forceinline__ uint32_t lf_row_picked(const Ctx& x,
                                                   const BtFM& fm,
                                                   uint32_t i) {

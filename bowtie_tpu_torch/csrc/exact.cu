@@ -12,33 +12,46 @@
 //                              exact_ranges_cat
 //   K15 bt_align_step   <- bowtie_tpu/parallel/mesh.py:55 sharded_align_step
 //                          (one launch per shard of the mesh)
-// Plain PyTorch versions: exact_ranges_plain / resolve_rows_plain in
-// align/exact.py, one_row_plain in align/pipeline.py,
+//   bt_walk_table builds the walk table the walks read (no counterpart:
+//   the reference walks occ and the BWT words)
+// Plain PyTorch versions: exact_ranges_plain / resolve_rows_plain /
+// walk_table_plain in align/exact.py, one_row_plain in align/pipeline.py,
 // exact_ranges_cat_plain in align/pe_device.py, align_step_plain in
 // parallel/mesh.py.
 //
 // What bounds them: every LF step of a range end reads one 32-byte
 // sector of occ and one of BWT words (fm.cuh), and the steps of one lane
 // depend on each other, so a lane is a chain of dependent random sector
-// reads: 2 sectors per LF step per range end in K2, 2 per walk step in
-// K3, plus 2 ftab sectors per strand, the read's bytes in and the results
-// out.  The index of a bacterial genome fits in the 50 MB L2, so those
-// sectors mostly come from L2, and the kernels are latency-bound.
+// reads: 2 sectors per LF step per range end in K2, plus 2 ftab sectors
+// per strand, the read's bytes in and the results out.  A walk-left step
+// (K3, K4, K15) reads one sector of the walk table.  The index of a
+// bacterial genome fits in the 50 MB L2, so those sectors mostly come
+// from L2.  K2 and K4 are latency-bound: a strand is a chain of ~26
+// search steps and a walk.  K3's walk-left over millions of rows is
+// bound by instruction issue: the walks are geometric (mean 2^offRate
+// steps), so with one row a thread a warp runs as long as its longest
+// of 32 walks and three quarters of its issue slots go to lanes that
+// have finished.
 //
-// What the design does about it: one thread per strand (K2, K4) or per
-// row (K3), enough threads to cover the latency, vector loads (one
-// 16-byte occ row, one 32-byte word block per rank), and early exits the
-// TPU's lockstep scan cannot take: K2 stops as soon as its range is
-// empty (an inactive lane of the scan keeps its values, so the result is
-// the same), K3 walks each row only to its own marked row instead of the
-// whole batch's longest walk.  Keeping a read's occ/ftab working set in
-// shared memory, warp-cooperative walks and CUDA graphs over the batch
-// loop are later work.
+// What the design does about it: one thread per strand (K2, K4, K15),
+// vector loads (one 16-byte occ row, one 32-byte word block per rank),
+// and early exits the TPU's lockstep scan cannot take: K2 stops as soon
+// as its range is empty (an inactive lane of the scan keeps its values,
+// so the result is the same).  K4 runs 64 threads a block, so that one
+// CLI batch of 16,384 strands spreads over every SM.  K3's walk kernel
+// gives each warp a run of rows and keeps every lane busy: a lane whose
+// row has stopped writes it and takes the run's next row (a ballot of the
+// lanes that need one, each lane's rank by popcount), a warp whose run is
+// out takes the next by atomicAdd, and the grid is sized to the card.
+// Each row's result does not depend on the schedule.
 #include "fm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kOneRowThreads = 64;     // K4: a CLI batch fills every SM
+constexpr int kWalkWarps = 4;          // K3 walk: warps a block
+constexpr int kWalkFill = 2;           // K3 walk: 1 / the occupancy used
 
 // K2 for one strand: ftab jump on the last ftab_chars columns, then one
 // LF per remaining column right to left; an N closes the range.  `q` is
@@ -80,13 +93,25 @@ __device__ __forceinline__ void exact_one(const BtFM& fm, const uint8_t* q,
     bot_out = hit ? bot : 0;
 }
 
+// The end of one walk: the joined-text offset and ok from the row `i`
+// the walk stopped at after `jumps` steps (reportChaseOne,
+// ebwt.h:2727-2746), `base` being offs[i >> off_rate] unless i is zoff.
+// ok=false past kMaxWalk steps, with the offset the reference computes
+// in that case.
+__device__ __forceinline__ uint32_t walk_end(const BtFM& fm, uint32_t i,
+                                             uint32_t jumps, uint32_t base,
+                                             bool& ok) {
+    const bool at_z = i == fm.zoff;
+    ok = at_z || (i & ((1u << fm.off_rate) - 1u)) == 0;
+    return at_z ? jumps : base + jumps;
+}
+
 // K3 for one row: the joined-text offset, by a dense-SA gather or by
-// walking left with LF until a row marked in the SA sample or zoff
-// (reportChaseOne, ebwt.h:2727-2746).  ok=false past kMaxWalk steps,
-// with the same offset the reference computes in that case.
+// walking left with lf_walk until a row marked in the SA sample or zoff.
 template <bool DENSE>
-__device__ __forceinline__ uint32_t resolve_one(const BtFM& fm, uint32_t row,
-                                                bool& ok) {
+__device__ __forceinline__ uint32_t resolve_one(const BtFM& fm,
+                                                const uint4* walk,
+                                                uint32_t row, bool& ok) {
     if (DENSE) {
         ok = true;
         return __ldg(fm.sa + row);
@@ -95,12 +120,12 @@ __device__ __forceinline__ uint32_t resolve_one(const BtFM& fm, uint32_t row,
     uint32_t i = row, jumps = 0;
     for (int it = 0; it < kMaxWalk; ++it) {
         if ((i & mask) == 0 || i == fm.zoff) break;
-        i = lf_row(fm, i);
+        i = lf_walk(fm, walk, i);
         ++jumps;
     }
-    const bool at_z = i == fm.zoff;
-    ok = at_z || (i & mask) == 0;
-    return at_z ? jumps : __ldg(fm.offs + (i >> fm.off_rate)) + jumps;
+    const uint32_t base =
+        i == fm.zoff ? 0u : __ldg(fm.offs + (i >> fm.off_rate));
+    return walk_end(fm, i, jumps, base, ok);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -162,15 +187,91 @@ exact_ranges_cat_kernel(const BtFM fw, const BtFM bw,
     bot[b] = u;
 }
 
-template <bool DENSE>
+// K3 dense: one thread a row, one gather.
 __global__ void __launch_bounds__(kThreads)
-resolve_kernel(const BtFM fm, const int64_t* __restrict__ rows, int n,
-               int64_t* __restrict__ off, bool* __restrict__ ok) {
+resolve_sa_kernel(const BtFM fm, const int64_t* __restrict__ rows, int n,
+                  int64_t* __restrict__ off, bool* __restrict__ ok) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= n) return;
     bool good;
-    off[b] = resolve_one<DENSE>(fm, (uint32_t)rows[b], good);
+    off[b] = resolve_one<true>(fm, nullptr, (uint32_t)rows[b], good);
     ok[b] = good;
+}
+
+// K3 walk-left: warp w owns the rows [w * stripe, (w + 1) * stripe), one
+// a lane at a time.  Each iteration a lane whose row has stopped (marked,
+// zoff or kMaxWalk steps) gathers its SA sample and takes the run's next
+// row, ranked among the lanes that need one by a ballot; a lane that took
+// a row this iteration steps from the next one on, every other live lane
+// takes one lf_walk step; then the stopped rows are written at their own
+// index.  The loads of an iteration (SA sample, new row, walk entry) do
+// not depend on each other.  A warp whose run is out takes the next
+// stripe of rows past the grid's first runs with one atomicAdd on
+// `counter`, so that the warps end together.  The warp ends when no run
+// is left and its rows have stopped; `iters`, if not null, gets its
+// iteration count.
+__global__ void __launch_bounds__(32 * kWalkWarps)
+walk_kernel(const BtFM fm, const uint4* __restrict__ walk,
+            const int64_t* __restrict__ rows, int n, int stripe,
+            int* __restrict__ counter, int64_t* __restrict__ off,
+            bool* __restrict__ ok, int32_t* __restrict__ iters) {
+    const uint32_t lane = threadIdx.x & 31u;
+    const int warp = blockIdx.x * kWalkWarps + (int)(threadIdx.x >> 5);
+    const int64_t lo = (int64_t)warp * stripe;
+    if (lo >= n) return;                          // the whole warp
+    int hi = lo + stripe < n ? (int)(lo + stripe) : n;
+    bool out = false;                             // no run left to take
+    const uint32_t below = (1u << lane) - 1u;
+    const uint32_t mask = (1u << fm.off_rate) - 1u;
+    int cursor = (int)lo;
+    int idx = -1;                                 // the lane's row; < 0: none
+    uint32_t i = 0, jumps = 0;
+    int it = 0;
+    for (;; ++it) {
+        const bool at_z = i == fm.zoff;
+        const bool stop = idx >= 0 && ((i & mask) == 0 || at_z
+                                       || jumps == kMaxWalk);
+        const uint32_t base =
+            stop && !at_z ? __ldg(fm.offs + (i >> fm.off_rate)) : 0u;
+        const bool need = idx < 0 || stop;
+        const uint32_t b = __ballot_sync(0xFFFFFFFFu, need);
+        const int rank = __popc(b & below), cnt = __popc(b);
+        int k = cursor + rank;
+        if (cnt > hi - cursor && !out) {
+            // the run cannot serve every lane: the lanes past it take the
+            // next run, which one atomicAdd hands this warp
+            int c = 0;
+            if (lane == 0) c = atomicAdd(counter, 1);
+            c = __shfl_sync(0xFFFFFFFFu, c, 0);
+            const int64_t next = ((int64_t)gridDim.x * kWalkWarps + c)
+                                 * stripe;
+            const int avail = hi - cursor;
+            if (next >= n) {
+                out = true;
+                cursor = hi;
+            } else {
+                if (rank >= avail) k = (int)next + rank - avail;
+                cursor = (int)next + cnt - avail;
+                hi = next + stripe < n ? (int)(next + stripe) : n;
+            }
+        } else {
+            cursor += cnt;
+        }
+        const bool got = need && k < hi;
+        const uint32_t fresh = got ? (uint32_t)__ldg(rows + k) : 0u;
+        const bool step = idx >= 0 && !stop;
+        const uint32_t next = step ? lf_walk(fm, walk, i) : fresh;
+        if (stop) {
+            bool good;
+            off[idx] = walk_end(fm, i, jumps, base, good);
+            ok[idx] = good;
+        }
+        jumps = step ? jumps + 1 : 0u;
+        i = next;
+        idx = !need ? idx : got ? k : -1;
+        if (!__any_sync(0xFFFFFFFFu, idx >= 0)) break;
+    }
+    if (iters != nullptr && lane == 0) iters[warp] = it + 1;
 }
 
 // K4: K2, then the per-strand pick top + r % spread with the first
@@ -178,8 +279,9 @@ resolve_kernel(const BtFM fm, const int64_t* __restrict__ rows, int n,
 // reportFullAlignment, ebwt_search_backtrack.h:1536-1540), then K3.
 // out is [3, n]: spread, offset, ok.
 template <bool DENSE>
-__global__ void __launch_bounds__(kThreads)
-one_row_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
+__global__ void __launch_bounds__(kOneRowThreads)
+one_row_kernel(const BtFM fm, const uint4* __restrict__ walk,
+               const uint8_t* __restrict__ reads,
                const int32_t* __restrict__ lens,
                const int64_t* __restrict__ seeds, int n, int L,
                int64_t* __restrict__ out) {
@@ -194,7 +296,8 @@ one_row_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
     const uint32_t spread = bot - top;
     const uint32_t row = top + r1 % (spread > 0 ? spread : 1u);
     bool good;
-    const uint32_t o = resolve_one<DENSE>(fm, spread > 0 ? row : 0u, good);
+    const uint32_t o =
+        resolve_one<DENSE>(fm, walk, spread > 0 ? row : 0u, good);
     out[b] = spread;
     out[(size_t)n + b] = o;
     out[2 * (size_t)n + b] = good ? 1 : 0;
@@ -208,7 +311,8 @@ one_row_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
 // for no range).
 template <bool DENSE>
 __global__ void __launch_bounds__(kThreads)
-align_step_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
+align_step_kernel(const BtFM fm, const uint4* __restrict__ walk,
+                  const uint8_t* __restrict__ reads,
                   const int32_t* __restrict__ lens, int n, int L,
                   int64_t* __restrict__ top, int64_t* __restrict__ bot,
                   int64_t* __restrict__ off, bool* __restrict__ ok) {
@@ -218,14 +322,72 @@ align_step_kernel(const BtFM fm, const uint8_t* __restrict__ reads,
     exact_one(fm, reads + (size_t)b * L, L, lens[b], t, u);
     bool good = false;
     uint32_t o = 0xFFFFFFFFu;
-    if (u > t) o = resolve_one<DENSE>(fm, t, good);
+    if (u > t) o = resolve_one<DENSE>(fm, walk, t, good);
     top[b] = t;
     bot[b] = u;
     off[b] = o;
     ok[b] = good;
 }
 
+// The walk table (lf_walk, fm.cuh): entry e = occ[e / 2], plus for an
+// odd e the codes of the block's first 64 rows, then the BWT words
+// 4e..4e+3.  One thread an entry.
+__global__ void __launch_bounds__(kThreads)
+walk_table_kernel(const uint4* __restrict__ bwt, const uint4* __restrict__ occ,
+                  int n, uint4* __restrict__ out) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n) return;
+    uint4 o = __ldg(occ + e / 2);
+    const uint4 w = __ldg(bwt + e);
+    if (e & 1) {
+        const uint4 h = __ldg(bwt + e - 1);      // the block's first half
+        const uint32_t hw[4] = {h.x, h.y, h.z, h.w};
+        uint32_t cnt[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (uint32_t c = 0; c < 4; ++c) {
+                const uint32_t m = ~(hw[k] ^ (c * 0x55555555u));
+                cnt[c] += __popc(m & (m >> 1) & 0x55555555u);
+            }
+        o.x += cnt[0];
+        o.y += cnt[1];
+        o.z += cnt[2];
+        o.w += cnt[3];
+    }
+    out[2 * (size_t)e] = o;
+    out[2 * (size_t)e + 1] = w;
+}
+
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
+
+// K3 walk's launch: the warps of 1 / kWalkFill of the card's resident
+// blocks (the occupancy calculator's blocks an SM; half of them measured
+// faster than all, fewer warps an SM each with more rows), each with a
+// run of 32 to 64 rows: at least one a lane, and runs short enough that
+// the warps end together, long enough that the first runs give every
+// warp rows.  out = {blocks, threads, stripe}.
+int walk_shape(int n, int* out) {
+    int dev = 0, sms = 0, per_sm = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc == 0)
+        rc = (int)cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0)
+        rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, walk_kernel, 32 * kWalkWarps, 0);
+    if (rc != 0) return rc;
+    const int64_t blocks = (int64_t)sms * per_sm / kWalkFill;
+    const int64_t fill = (blocks > 0 ? blocks : 1) * kWalkWarps;
+    int64_t stripe = (n + fill - 1) / fill;
+    stripe = stripe < 32 ? 32 : stripe > 64 ? 64 : stripe;
+    int64_t warps = (n + stripe - 1) / stripe;
+    if (warps > fill) warps = fill;
+    out[0] = (int)((warps + kWalkWarps - 1) / kWalkWarps);
+    out[1] = 32 * kWalkWarps;
+    out[2] = (int)stripe;
+    return 0;
+}
 
 }  // namespace
 
@@ -249,47 +411,69 @@ int bt_exact_ranges_cat(const BtFM* fw, const BtFM* bw, const void* reads,
     return (int)cudaGetLastError();
 }
 
-int bt_resolve_walk(const BtFM* fm, const void* rows, int n, void* off,
-                    void* ok, void* stream) {
-    resolve_kernel<false><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        *fm, (const int64_t*)rows, n, (int64_t*)off, (bool*)ok);
+// K3 walk over the walk table `walk`; counter is one zeroed int; iters
+// (may be null) gets each warp's iterations.
+int bt_resolve_walk(const BtFM* fm, const void* walk, const void* rows,
+                    int n, void* counter, void* off, void* ok, void* iters,
+                    void* stream) {
+    int shape[3];
+    const int rc = walk_shape(n, shape);
+    if (rc != 0) return rc;
+    walk_kernel<<<shape[0], shape[1], 0, (cudaStream_t)stream>>>(
+        *fm, (const uint4*)walk, (const int64_t*)rows, n, shape[2],
+        (int*)counter, (int64_t*)off, (bool*)ok, (int32_t*)iters);
     return (int)cudaGetLastError();
 }
+
+int bt_walk_shape(int n, void* out) { return walk_shape(n, (int*)out); }
 
 int bt_resolve_sa(const BtFM* fm, const void* rows, int n, void* off,
                   void* ok, void* stream) {
-    resolve_kernel<true><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    resolve_sa_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
         *fm, (const int64_t*)rows, n, (int64_t*)off, (bool*)ok);
     return (int)cudaGetLastError();
 }
 
-int bt_one_row(const BtFM* fm, const void* reads, const void* lens,
-               const void* seeds, int n, int L, int dense, void* out,
-               void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (dense)
-        one_row_kernel<true><<<grid_for(n), kThreads, 0, s>>>(
-            *fm, (const uint8_t*)reads, (const int32_t*)lens,
-            (const int64_t*)seeds, n, L, (int64_t*)out);
-    else
-        one_row_kernel<false><<<grid_for(n), kThreads, 0, s>>>(
-            *fm, (const uint8_t*)reads, (const int32_t*)lens,
-            (const int64_t*)seeds, n, L, (int64_t*)out);
+// The walk table of n entries from the index's BWT words and occ rows.
+int bt_walk_table(const void* bwt, const void* occ, int n, void* out,
+                  void* stream) {
+    walk_table_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint4*)bwt, (const uint4*)occ, n, (uint4*)out);
     return (int)cudaGetLastError();
 }
 
-int bt_align_step(const BtFM* fm, const void* reads, const void* lens,
-                  int n, int L, int dense, void* top, void* bot, void* off,
-                  void* ok, void* stream) {
+int bt_one_row(const BtFM* fm, const void* walk, const void* reads,
+               const void* lens, const void* seeds, int n, int L, int dense,
+               void* out, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const int blocks = (n + kOneRowThreads - 1) / kOneRowThreads;
+    if (dense)
+        one_row_kernel<true><<<blocks, kOneRowThreads, 0, s>>>(
+            *fm, (const uint4*)walk, (const uint8_t*)reads,
+            (const int32_t*)lens, (const int64_t*)seeds, n, L,
+            (int64_t*)out);
+    else
+        one_row_kernel<false><<<blocks, kOneRowThreads, 0, s>>>(
+            *fm, (const uint4*)walk, (const uint8_t*)reads,
+            (const int32_t*)lens, (const int64_t*)seeds, n, L,
+            (int64_t*)out);
+    return (int)cudaGetLastError();
+}
+
+int bt_align_step(const BtFM* fm, const void* walk, const void* reads,
+                  const void* lens, int n, int L, int dense, void* top,
+                  void* bot, void* off, void* ok, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (dense)
         align_step_kernel<true><<<grid_for(n), kThreads, 0, s>>>(
-            *fm, (const uint8_t*)reads, (const int32_t*)lens, n, L,
-            (int64_t*)top, (int64_t*)bot, (int64_t*)off, (bool*)ok);
+            *fm, (const uint4*)walk, (const uint8_t*)reads,
+            (const int32_t*)lens, n, L, (int64_t*)top, (int64_t*)bot,
+            (int64_t*)off, (bool*)ok);
     else
         align_step_kernel<false><<<grid_for(n), kThreads, 0, s>>>(
-            *fm, (const uint8_t*)reads, (const int32_t*)lens, n, L,
-            (int64_t*)top, (int64_t*)bot, (int64_t*)off, (bool*)ok);
+            *fm, (const uint4*)walk, (const uint8_t*)reads,
+            (const int32_t*)lens, n, L, (int64_t*)top, (int64_t*)bot,
+            (int64_t*)off, (bool*)ok);
     return (int)cudaGetLastError();
 }
 

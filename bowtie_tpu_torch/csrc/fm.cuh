@@ -16,6 +16,13 @@
 // popcount arithmetic is a few dozen integer ops and never the limit.
 // So an LF step is two dependent random sector reads, and every caller
 // is bound by memory latency and sectors, not by bandwidth or ALU.
+//
+// The walk-left step of K3 and K4 (lf_walk) reads the walk table instead
+// (align/exact.py walk_table): one aligned 32-byte entry per 64 rows, the
+// four counts at the entry's first row and the 64 rows' codes, so a step
+// is one sector, two 16-byte loads, a select over four words and four
+// independent masked popcounts, against two sectors (an occ row and a
+// block) and eight words by the rank helpers below.
 #pragma once
 
 #include <cstdint>
@@ -24,6 +31,7 @@
 constexpr uint32_t kOccBlock = 128;   // rows per checkpoint
 constexpr int kWordsPerBlock = 8;     // 32 bytes of 2-bit codes
 constexpr int kMaxWalk = 1024;        // walk-left bound (exact.py MAX_WALK)
+constexpr uint32_t kWalkRows = 64;    // rows per walk-table entry
 
 // Mirrors FMView in bowtie_tpu_torch/kernels.py field for field.
 struct BtFM {
@@ -84,17 +92,6 @@ __device__ __forceinline__ uint32_t count_in_block(
     return cnt;
 }
 
-// The stored code of row `rem` of the block (a register select, no
-// dynamically indexed local array).
-__device__ __forceinline__ uint32_t code_in_block(
-        const uint32_t w[kWordsPerBlock], uint32_t rem) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < kWordsPerBlock; ++k)
-        if ((rem >> 4) == (uint32_t)k) word = w[k];
-    return (word >> (2 * (rem & 15))) & 3u;
-}
-
 // Occ(c, i): occurrences of code c in BWT rows [0, i).
 __device__ __forceinline__ uint32_t rank1(const BtFM& fm, uint32_t c,
                                           uint32_t i) {
@@ -142,14 +139,27 @@ __device__ __forceinline__ void lf4pair(const BtFM& fm, uint32_t top,
     }
 }
 
-// mapLF(l): LF of row i by its own char, read from the same block as the
-// rank scan (one occ row + one word block).  Undefined at zoff.
-__device__ __forceinline__ uint32_t lf_row(const BtFM& fm, uint32_t i) {
-    const uint32_t block = i / kOccBlock, rem = i % kOccBlock;
-    const uint4 o = __ldg(fm.occ + block);
-    uint32_t w[kWordsPerBlock];
-    block_words(fm, block, w);
-    const uint32_t c = code_in_block(w, rem);
+// mapLF(l) on the walk table: entry e = l / 64 is x = Occ(A..T) at row
+// 64e, counted as occ counts them ('$' at zoff as an A), and y = the
+// entry's 64 codes in four words (bwt's words 4e..4e+3): LF of row i by
+// its own code, fchr[c] + Occ(c, i).  Undefined at zoff.
+__device__ __forceinline__ uint32_t lf_walk(const BtFM& fm,
+                                            const uint4* walk, uint32_t i) {
+    const uint4* p = walk + 2 * (size_t)(i / kWalkRows);
+    const uint4 o = __ldg(p), w = __ldg(p + 1);
+    const uint32_t rem = i % kWalkRows, q = rem >> 4;
+    const uint32_t word = q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
+    const uint32_t c = (word >> (2 * (rem & 15))) & 3u;
+    const uint32_t pat = c * 0x55555555u;
+    const uint32_t part = (1u << (2 * (rem & 15))) - 1u;  // rows below rem
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+    uint32_t cnt = 0;
+#pragma unroll
+    for (uint32_t k = 0; k < 4; ++k) {
+        const uint32_t m = ~(ws[k] ^ pat);
+        const uint32_t keep = k < q ? 0xFFFFFFFFu : k == q ? part : 0u;
+        cnt += __popc(m & (m >> 1) & 0x55555555u & keep);
+    }
     const uint32_t corr = (c == 0 && i > fm.zoff) ? 1u : 0u;
-    return fchr_get(fm, c) + occ_get(o, c) + count_in_block(w, c, rem) - corr;
+    return fchr_get(fm, c) + occ_get(o, c) + cnt - corr;
 }

@@ -5,8 +5,8 @@
 //
 // Replaces bowtie_tpu/align/pe_ilv_device.py:527 run_ilv_chunk over :503
 // _machine_step (:151 _step_ilv, :262 _step_chase, :400 _step_scan) and
-// the drivers :542 run_ilv and :535 _compact_ilv, with K1 (lf_row)
-// inlined from fm.cuh.  Plain version, which this is held to:
+// the drivers :542 run_ilv and :535 _compact_ilv, with K1 (mapLF,
+// lf_row_word below) inlined.  Plain version, which this is held to:
 // run_ilv_plain in bowtie_tpu_torch/align/pe_ilv_device.py.
 //
 // One warp per pair, kWarps warps a block.  Every thread of a warp runs
@@ -323,8 +323,9 @@ __device__ __forceinline__ void step_ilv(Lane& s, const Ctx& x) {
     sched_chase(s, x, aslot, cur, my_side);
 }
 
-// fm.cuh lf_row, the row's own code read from its word (a select from
-// the block's words by a run-time index would put them on the stack)
+// mapLF(i) (ops/fm.py lf_row_compact_plain), the row's own code read from
+// its word (a select from the block's words by a run-time index would put
+// them on the stack)
 __device__ __forceinline__ uint32_t lf_row_word(const BtFM& fm, uint32_t i) {
     const uint32_t block = i / kOccBlock, rem = i % kOccBlock;
     const uint4 o = __ldg(fm.occ + block);

@@ -64,6 +64,10 @@ class FMIndexArrays:
     sa: torch.Tensor | None = None   # int32 [bwt_len]
     # the CUDA kernels' view of these arrays (kernels.fm_view)
     kernel_view: object = field(default=None, repr=False, compare=False)
+    # the walk table K3 and K4 walk on (align/exact.py walk_table), built
+    # at first use; it depends on bwt, occ and zoff only
+    walk: torch.Tensor | None = field(default=None, repr=False,
+                                      compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -72,7 +76,7 @@ class FMIndexArrays:
     def nbytes(self) -> int:
         """Bytes the index holds on its device."""
         ts = [self.bwt, self.occ, self.fchr, self.ftab_hi, self.ftab_lo,
-              self.offs] + ([self.sa] if self.sa is not None else [])
+              self.offs] + [t for t in (self.sa, self.walk) if t is not None]
         return sum(t.numel() * t.element_size() for t in ts)
 
 

@@ -29,7 +29,8 @@ HEADERS = ("fm.cuh", "lookback.cuh", "dfs_layout.cuh")
 # kernel launches since the last reset_launches(), by wrapper
 LAUNCHES = {"exact_ranges": 0, "exact_ranges_cat": 0,
             "resolve_rows_walk": 0, "resolve_rows_sa": 0, "one_row": 0,
-            "bwt_rows_offsets": 0, "align_step": 0, "derive_rows": 0,
+            "bwt_rows_offsets": 0, "align_step": 0, "walk_table": 0,
+            "derive_rows": 0,
             "dfs_machine": 0, "dfs_pack": 0, "derive_b_jobs": 0,
             "best_machine": 0, "best_record": 0, "best_pev2": 0,
             "best_pack": 0,
@@ -132,15 +133,20 @@ _SIGNATURES = {
     # (fw, bw, reads, lens, efw, n, L, top, bot, stream)
     "bt_exact_ranges_cat": [_FM, _FM, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                             _P, _P, _P],
+    # (fm, walk, rows, n, counter, off, ok, iters, stream)
+    "bt_resolve_walk": [_FM, _P, _P, ctypes.c_int, _P, _P, _P, _P, _P],
+    # (n, out[4]) -> K3 walk's launch shape
+    "bt_walk_shape": [ctypes.c_int, _P],
     # (fm, rows, n, off, ok, stream)
-    "bt_resolve_walk": [_FM, _P, ctypes.c_int, _P, _P, _P],
     "bt_resolve_sa": [_FM, _P, ctypes.c_int, _P, _P, _P],
-    # (fm, reads, lens, seeds, n, L, dense, out, stream)
-    "bt_one_row": [_FM, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   _P, _P],
-    # (fm, reads, lens, n, L, dense, top, bot, off, ok, stream)
-    "bt_align_step": [_FM, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      _P, _P, _P, _P, _P],
+    # (bwt, occ, n, out, stream)
+    "bt_walk_table": [_P, _P, ctypes.c_int, _P, _P],
+    # (fm, walk, reads, lens, seeds, n, L, dense, out, stream)
+    "bt_one_row": [_FM, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _P, _P],
+    # (fm, walk, reads, lens, n, L, dense, top, bot, off, ok, stream)
+    "bt_align_step": [_FM, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _P, _P, _P, _P, _P],
     # (args, onchip, stream)
     "bt_dfs_machine": [ctypes.POINTER(DfsArgs), ctypes.c_int, _P],
     # () -> K7's threads a block; () -> the widest on-chip L

@@ -67,6 +67,17 @@ def words_needed(i: torch.Tensor) -> torch.Tensor:
     return (i % OCC_BLOCK + 15) // 16
 
 
+WALK_ROWS = 64   # rows per walk-table entry (csrc/fm.cuh kWalkRows)
+
+
+def walk_words_needed(i: torch.Tensor) -> torch.Tensor:
+    """Words of its walk-table entry that a walk step at row i must
+    popcount (csrc/fm.cuh lf_walk): those holding rows [entry start, i),
+    ceil((i mod 64) / 16).  The kernels scan all 4 with masks; this is
+    the least work, for bounds."""
+    return (i % WALK_ROWS + 15) // 16
+
+
 def _rows(fm: FMIndexArrays, i) -> torch.Tensor:
     return torch.as_tensor(i, dtype=torch.int64, device=fm.device)
 

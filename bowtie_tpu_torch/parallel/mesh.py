@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..align.exact import exact_ranges_plain, resolve_rows_plain
+from ..align.exact import exact_ranges_plain, resolve_rows_plain, walk_ptr
 from ..index.arrays import U32, FMIndexArrays
 from ..utils.device import resolve_device
 
@@ -119,7 +119,7 @@ def align_step(fm: FMIndexArrays, reads: torch.Tensor, lens: torch.Tensor):
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         kernels.launch("align_step", "bt_align_step", kernels.fm_view(fm),
-                       reads.data_ptr(), lens.data_ptr(), n, L,
+                       walk_ptr(fm), reads.data_ptr(), lens.data_ptr(), n, L,
                        int(fm.sa is not None), top.data_ptr(),
                        bot.data_ptr(), off.data_ptr(), ok.data_ptr(),
                        device=dev)

@@ -34,16 +34,18 @@ Phases, each printing one JSON line:
              every later phase reads what it read before this phase
              existed.
 4. kernels - 2^20 seeded 36 bp reads (2^21 strands): K2 exact search,
-             K3 resolve (walk-left over K2's top rows, and dense SA) and
-             K4 (fused one-row path), each held equal element for element
-             to its plain PyTorch version on the card and timed with CUDA
-             events (median of 20 runs after warm-up; plain versions one
-             run each, after the run they are held to; K3 dense's plain
-             version median of 5; K3 dense and torch.index_select timed
-             in turns, 20 runs each, medians and spreads).  K3 walk and
-             K4 are also held to their plain
-             versions on the index with its SA sample thinned to offRate
-             13, where most walks pass MAX_WALK and end with ok=False.
+             the walk table (walk_table_kernel, the layout K3's and K4's
+             walk steps read), K3 resolve (walk-left over K2's top rows,
+             and dense SA) and K4 (fused one-row path), each held equal
+             element for element to its plain PyTorch version on the card
+             and timed with CUDA events (median of 20 runs after warm-up;
+             plain versions one run each, the run they are held to, with
+             its work count; K3 dense's plain version median of 5; K3
+             dense and torch.index_select timed in turns, 20 runs each,
+             medians and spreads).  K3 walk and K4 are also held to their
+             plain versions on the index with its SA sample thinned to
+             offRate 13, where most walks pass MAX_WALK and end with
+             ok=False.
              K15 (align_step: K2 and K3 fused, the step parallel/mesh.py
              runs on every shard) and the K3 remainder (bwt_rows_offsets:
              K3 masked by a valid flag; K2's top rows, valid where the
@@ -57,7 +59,9 @@ Phases, each printing one JSON line:
              bowtie_tpu_torch.cli.align.main on the card (-v 0 -k 1
              verbose, through K4; -v 0 -a -m 3 -S, through K2 and K3
              walk), each with the launch counters zeroed just before and
-             read just after.  Every reported hit must equal its reference
+             read just after; K3 walk's launch in the -a run (every row of
+             the batch's ranges) is kept and held to its plain version on
+             the same rows.  Every reported hit must equal its reference
              substring, every planted exact read must align, and the
              records of the first 1,000 reads must equal, byte for byte,
              what the same CLI writes for those reads on the CPU (the
@@ -148,9 +152,10 @@ Phases, each printing one JSON line:
              (exact_ranges_cat) held exactly to its plain version on the
              card on the 2,048 lanes of phase 0's matrix (each mate in each
              orientation, on the forward or the mirror index) and timed
-             there (median of 20; plain median of 5), and again at 2^21
-             strands of the kernels phase's read mix (their own generator,
-             seed + 2), forward and mirror lanes alternating, beside K2.
+             there (median of 20; plain the one run it is held to), and
+             again at 2^21 strands of the kernels phase's read mix (their
+             own generator, seed + 2), forward and mirror lanes
+             alternating, beside K2.
              K10r (best_machine in record mode) held exactly to its plain
              version on the card (hits, nhits, overflow, mode) on every
              lane the plain version finished within its budget, under -n 2
@@ -282,13 +287,15 @@ from bowtie_tpu_torch.align.drivers import OracleAligner  # noqa: E402
 from bowtie_tpu_torch.align.golden import GoldenFM  # noqa: E402
 from bowtie_tpu_torch.align import pe_device as pe  # noqa: E402
 from bowtie_tpu_torch.align import pe_ilv_device as ilv  # noqa: E402
+from bowtie_tpu_torch.align import pipeline as tpipe  # noqa: E402
 from bowtie_tpu_torch.align.pe_device import (  # noqa: E402
     DevicePairedBestAligner, exact_ranges_cat, exact_ranges_cat_plain)
 from bowtie_tpu_torch.align.pev2_device import (  # noqa: E402
     DevicePairedV2Aligner)
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
     bwt_rows_offsets, bwt_rows_offsets_plain, exact_ranges,
-    exact_ranges_plain, resolve_rows, resolve_rows_plain)
+    exact_ranges_plain, resolve_rows, resolve_rows_plain, walk_table,
+    walk_table_plain)
 from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
     ExactAligner, one_row, one_row_plain)
 from bowtie_tpu_torch.align.policy import INF, KPolicy  # noqa: E402
@@ -308,31 +315,10 @@ from bowtie_tpu_torch.parallel.mesh import (  # noqa: E402
     shard_reads, sharded_align_step)
 from bowtie_tpu_torch.utils.kdiag import lane_stats, ptxas_entry  # noqa: E402
 from bowtie_tpu_torch.utils.rng import fill_seed_caches  # noqa: E402
+from bowtie_tpu_torch.utils.yardstick import (  # noqa: E402
+    COMP, HBM_BYTES_PER_S, INT32_OPS_PER_S, KINDS, L2_BYTES, READ_LEN,
+    SECTOR, SECTORS_PER_WALK_STEP, bounds, make_reads, strand_matrix)
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-# H100 SXM: 132 SMs at the 1.98 GHz boost clock (Hopper architecture white
-# paper); per SM and clock, 64 results of 32-bit integer add, shift and
-# bitwise logic and 16 of population count (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-POPC_OPS_PER_S = 132 * 16 * 1.98e9
-# The least instructions of one rank Occ(c, i) (fm.cuh rank1, lf_row),
-# counted from the words the function needs, not from the kernels' masked
-# 8-word scan.  For each of the ceil((i mod 128) / 16) words that hold rows
-# of the block before i (ops.fm.words_needed, summed by the plain versions):
-# one LOP3 for the lane match ~(w ^ pattern), one shift, one LOP3 folding
-# m & (m >> 1) with the lane mask, one add, and one popc.  Per rank, 9 more
-# integer ops: 2 to split the row into block and offset, 3 for the partial
-# word's lane mask, 2 for the '$' correction, 2 adds (checkpoint, fchr).
-# A walk step (mapLF) first takes its own code from the block: 2 more.
-# Per-strand set-up (the ftab offset, the LCG draw) is left out, which only
-# lowers the bound.
-INT_OPS_PER_WORD = 4
-INT_OPS_PER_RANK = 9
-INT_OPS_PER_WALK_STEP = 2
-L2_BYTES = 50 * 2**20          # H100 L2
-SECTOR = 32
-READ_LEN = 36
 SOURCE = "bowtie_tpu_torch/csrc/exact.cu"
 DFS_SOURCE = "bowtie_tpu_torch/csrc/dfs.cu"
 JOBS_SOURCE = "bowtie_tpu_torch/csrc/jobs.cu"
@@ -346,7 +332,6 @@ NO_LIBRARY_K10 = ("n/a: no single PyTorch call runs a best-first "
                   "branch-and-bound search")
 BEST_SOURCE = "bowtie_tpu_torch/csrc/best.cu"
 SA_SOURCE = "bowtie_tpu_torch/csrc/sa.cu"
-COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
@@ -376,54 +361,6 @@ def make_genome(rng, length: int, copies: int, seg_len: int):
     for s in starts:
         g[s:s + seg_len] = seg
     return g, starts
-
-
-KINDS = ("exact", "repeat", "mismatch", "n", "short", "random")
-KIND_P = (0.60, 0.10, 0.10, 0.05, 0.05, 0.10)
-
-
-def make_reads(rng, genome, rep_starts, seg_len: int, n: int):
-    """n reads of READ_LEN (shorter for kind "short"): codes [n, L]
-    left-aligned (pad 4), lens, kind index, genome offset, strand
-    (1 = reverse complement)."""
-    L = READ_LEN
-    kind = rng.choice(len(KINDS), size=n, p=KIND_P)
-    pos = rng.integers(0, len(genome) - L, n)
-    rep = kind == KINDS.index("repeat")
-    pos[rep] = (rep_starts[rng.integers(0, len(rep_starts), rep.sum())]
-                + rng.integers(0, seg_len - L, rep.sum()))
-    codes = genome[pos[:, None] + np.arange(L)]
-    strand = rng.integers(0, 2, n)
-    rc = strand == 1
-    codes[rc] = COMP[codes[rc, ::-1]]
-    rows = np.arange(n)
-    mm = kind == KINDS.index("mismatch")
-    col = rng.integers(0, L, n)
-    codes[rows[mm], col[mm]] = (codes[rows[mm], col[mm]]
-                                + rng.integers(1, 4, mm.sum())) % 4
-    nk = kind == KINDS.index("n")
-    codes[rows[nk], col[nk]] = 4
-    rnd = kind == KINDS.index("random")
-    codes[rnd] = rng.integers(0, 4, (rnd.sum(), L))
-    lens = np.full(n, L, dtype=np.int32)
-    sh = kind == KINDS.index("short")
-    lens[sh] = rng.integers(5, 10, sh.sum())
-    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
-    return codes, lens, kind, pos, strand
-
-
-def strand_matrix(codes, lens):
-    """Both strands right-aligned, fw block then rc block: the layout
-    ExactAligner hands the kernels.  -> (mat [2n, L], lens [2n])."""
-    n, L = codes.shape
-    j = np.arange(L)[None, :] - (L - lens[:, None])       # source column
-    valid = j >= 0
-    jc = np.clip(j, 0, L - 1)
-    fw = np.where(valid, np.take_along_axis(codes, jc, 1), 4)
-    src_rc = np.clip(lens[:, None] - 1 - j, 0, L - 1)
-    rc = np.where(valid, COMP[np.take_along_axis(codes, src_rc, 1)], 4)
-    return (np.concatenate([fw, rc]).astype(np.uint8),
-            np.concatenate([lens, lens]).astype(np.int32))
 
 
 # ---------------------------------------------------------------- timing
@@ -494,26 +431,6 @@ def time_all_ms(fn, iters: int) -> float:
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bounds(nbytes: int, ranks: int, walk_steps: int, words: int,
-           sectors: int) -> dict:
-    """The least time the card could take: the larger of `nbytes` (each
-    input read once, each output written once) over the HBM rate and the
-    operations of `ranks` ranks (`walk_steps` of them walk steps) that
-    popcount `words` words in all, each class over its own rate (the
-    integer and popc pipes may issue side by side, so the larger of the
-    two).  sector_ms is the other yardstick: every 32-byte sector the
-    kernel touches, re-reads included, over the HBM rate."""
-    int_ops = (INT_OPS_PER_WORD * words + INT_OPS_PER_RANK * ranks
-               + INT_OPS_PER_WALK_STEP * walk_steps)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * max(int_ops / INT32_OPS_PER_S, words / POPC_OPS_PER_S)
-    return dict(bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes_ms=bytes_ms, ops_ms=ops_ms, int_ops=int_ops,
-                popc_ops=words, ranks=ranks,
-                sector_ms=1e3 * SECTOR * sectors / HBM_BYTES_PER_S)
 
 
 def max_abs_err(pairs) -> int:
@@ -780,7 +697,8 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
     # K2
     top, bot = exact_ranges(fm, mat, lens2)
     k2_work = torch.zeros(2, n, dtype=torch.int64, device=device)
-    ptop, pbot = exact_ranges_plain(fm, mat, lens2, k2_work)
+    (ptop, pbot), k2_plain_ms = time_once(
+        lambda: exact_ranges_plain(fm, mat, lens2, k2_work), device)
     err = max_abs_err([(top, ptop), (bot, pbot)])
     require(err == 0, f"K2 disagrees with its plain version by {err}")
     hit = bot > top
@@ -790,20 +708,42 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         name="K2 exact_ranges", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/exact.py:37",
         ms=time_ms(lambda: exact_ranges(fm, mat, lens2), device, 20),
-        plain_ms=time_once(lambda: exact_ranges_plain(fm, mat, lens2),
-                           device)[1],
+        plain_ms=k2_plain_ms,
         **bounds(index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, mat, lens2)
                  + 16 * n, 2 * lf_steps, 0, k2_words,
                  2 * n_ftab + 2 * 2 * lf_steps),
         library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
         strands=n, strands_hit=int(hit.sum()), lf_steps_per_end=lf_steps)
 
+    # the walk table that K3's and K4's walk steps read, built anew
+    table = walk_table(fm)
+    walk_bytes = _nbytes(table)              # what every walk step reads
+    ptable, table_plain_ms = time_once(lambda: walk_table_plain(fm), device)
+    err = max_abs_err([(table, ptable)])
+    require(err == 0, f"the walk table disagrees with its plain version "
+            f"by {err}")
+    nb = fm.occ.shape[0] - 1
+    table_bytes = 32 * nb + 16 * nb + _nbytes(table)   # words, occ, table
+    out["K3t"] = dict(
+        name="K3 walk table (walk_table_kernel)", route="cuda",
+        source=SOURCE,
+        replaces="bowtie_tpu/align/exact.py:99 (the layout its walk reads)",
+        ms=time_ms(lambda: walk_table(dataclasses.replace(
+            fm, walk=None, kernel_view=None)), device, 20),
+        plain_ms=table_plain_ms,
+        **bounds(table_bytes, 0, 0, 0, table_bytes // SECTOR),
+        library_ms=None,
+        library="n/a: no single PyTorch call builds the walk table",
+        max_abs_err=err, match=True, entries=int(table.shape[0]),
+        table_bytes=_nbytes(table))
+
     # K3 over K2's top rows, walk-left and dense SA
     rows = top[hit].contiguous()
     m = rows.numel()
     off, ok = resolve_rows(fm, rows)
     walk = torch.zeros(2, m, dtype=torch.int64, device=device)
-    poff, pok = resolve_rows_plain(fm, rows, walk)
+    (poff, pok), k3_plain_ms = time_once(
+        lambda: resolve_rows_plain(fm, rows, walk), device)
     err = max_abs_err([(off, poff), (ok, pok)])
     require(err == 0, f"K3 (walk) disagrees with its plain version by {err}")
     require(bool(ok.all()), "K3 walk overflow on the smoke input")
@@ -812,9 +752,10 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         name="K3 resolve_rows (walk)", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/exact.py:99",
         ms=time_ms(lambda: resolve_rows(fm, rows), device, 20),
-        plain_ms=time_once(lambda: resolve_rows_plain(fm, rows), device)[1],
-        **bounds(index_rank + _nbytes(fm.offs, rows) + 9 * m, walk_steps,
-                 walk_steps, walk_words, 2 * walk_steps + m),
+        plain_ms=k3_plain_ms,
+        **bounds(walk_bytes + _nbytes(fm.offs, rows) + 9 * m, walk_steps,
+                 walk_steps, walk_words,
+                 SECTORS_PER_WALK_STEP * walk_steps + m),
         library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
         rows=m, walk_steps=walk_steps,
         max_walk=int(walk[0].max()) if m else 0)
@@ -843,7 +784,8 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
     # K4
     res = one_row(fm, mat, lens2, seeds)
     k4_work = torch.zeros(2, n, dtype=torch.int64, device=device)
-    pres = one_row_plain(fm, mat, lens2, seeds, k4_work)
+    pres, k4_plain_ms = time_once(
+        lambda: one_row_plain(fm, mat, lens2, seeds, k4_work), device)
     err = max_abs_err([(res, pres)])
     require(err == 0, f"K4 disagrees with its plain version by {err}")
     k4_steps, k4_words = (int(x) for x in k4_work.sum(1))
@@ -852,12 +794,13 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         name="K4 one_row", route="cuda", source=SOURCE,
         replaces="bowtie_tpu/align/pipeline.py:53",
         ms=time_ms(lambda: one_row(fm, mat, lens2, seeds), device, 20),
-        plain_ms=time_once(lambda: one_row_plain(fm, mat, lens2, seeds),
-                           device)[1],
-        **bounds(index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat,
-                                      lens2, seeds) + 24 * n,
+        plain_ms=k4_plain_ms,
+        **bounds(index_rank + walk_bytes
+                 + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat, lens2,
+                           seeds) + 24 * n,
                  2 * lf_steps + k4_walk, k4_walk, k4_words,
-                 2 * n_ftab + 2 * 2 * lf_steps + 2 * k4_walk + n),
+                 2 * n_ftab + 2 * 2 * lf_steps
+                 + SECTORS_PER_WALK_STEP * k4_walk + n),
         library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
         strands=n, walk_steps=k4_walk)
 
@@ -904,8 +847,9 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         t, b = exact_ranges(fm, mat, lens2)
         return resolve_rows(fm, torch.where(b > t, t, 0))
 
-    k15_nbytes = (index_rank + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat,
-                                       lens2) + 25 * n)
+    k15_nbytes = (index_rank + walk_bytes
+                  + _nbytes(fm.ftab_hi, fm.ftab_lo, fm.offs, mat, lens2)
+                  + 25 * n)
     out["K15"] = dict(
         name="K15 align_step (K2 + K3 fused; parallel/mesh.py)",
         route="cuda", source=SOURCE,
@@ -916,7 +860,8 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         k2_plus_k3w_ms=out["K2"]["ms"] + out["K3w"]["ms"],
         **bounds(k15_nbytes, 2 * lf_steps + walk_steps, walk_steps,
                  k2_words + walk_words,
-                 2 * n_ftab + 2 * 2 * lf_steps + 2 * walk_steps + m),
+                 2 * n_ftab + 2 * 2 * lf_steps
+                 + SECTORS_PER_WALK_STEP * walk_steps + m),
         library_ms=None, library=NO_LIBRARY, max_abs_err=err,
         max_abs_err_vs_k2_k3=err_k2k3, match=True, strands=n,
         strands_hit=int(hit.sum()))
@@ -932,8 +877,9 @@ def phase_kernels(rng, device, genome, rep_starts, seg_len, fm, fm_sa,
         replaces="bowtie_tpu/align/exact.py:142",
         ms=time_ms(lambda: bwt_rows_offsets(fm, top, hit), device, 20),
         plain_ms=k3r_plain_ms,
-        **bounds(index_rank + _nbytes(fm.offs, top, hit) + 9 * n,
-                 walk_steps, walk_steps, walk_words, 2 * walk_steps + n),
+        **bounds(walk_bytes + _nbytes(fm.offs, top, hit) + 9 * n,
+                 walk_steps, walk_steps, walk_words,
+                 SECTORS_PER_WALK_STEP * walk_steps + n),
         library_ms=None, library=NO_LIBRARY, max_abs_err=err, match=True,
         rows=n, valid_rows=m)
     emit({"phase": "kernels", "reads": n_reads, "strands": n,
@@ -1385,8 +1331,37 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
 
     a_args = ["-v", "0", "-a", "-m", "3", "-S", "--batch-size", "65536"]
     out2 = os.path.join(work, "a_m3.sam")
-    (wall2, err2), launches2 = counted(
-        lambda: run_cli(a_args + ["-x", base, reads, out2], device), device)
+    # K3 walk's launches in this run kept: its rows and what it returned
+    seen, real = [], tpipe.resolve_rows
+
+    def keep(f, rows):
+        off, ok = real(f, rows)
+        seen.append((f, rows.clone(), off.clone(), ok.clone()))
+        return off, ok
+    tpipe.resolve_rows = keep
+    try:
+        (wall2, err2), launches2 = counted(
+            lambda: run_cli(a_args + ["-x", base, reads, out2], device),
+            device)
+    finally:
+        tpipe.resolve_rows = real
+    # ... each held to the plain version on the same rows
+    require(len(seen) == launches2["resolve_rows_walk"] > 0,
+            f"-a -m 3 run's K3 walk launches: {len(seen)} kept")
+    k3_batches = []
+    for f, rows, off, ok in seen:
+        walk = torch.zeros(2, rows.numel(), dtype=torch.int64, device=device)
+        (poff, pok), plain_ms = time_once(
+            lambda: resolve_rows_plain(f, rows, walk), device)
+        err = max_abs_err([(off, poff), (ok, pok)])
+        require(err == 0, f"K3 walk on the CLI's -a batch disagrees with "
+                f"its plain version by {err}")
+        k3_batches.append(dict(rows=rows.numel(),
+                               walk_steps=int(walk[0].sum()),
+                               max_walk=int(walk[0].max()),
+                               plain_ms=plain_ms, max_abs_err=err,
+                               match=True))
+    del seen
     require(launches2["exact_ranges"] > 0
             and launches2["resolve_rows_walk"] > 0,
             f"-a -m 3 run launched {launches2}")
@@ -1419,6 +1394,7 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
           "a_m3_S": {"wall_s": wall2, "reads_per_s": n_reads / wall2,
                      "records": nrec2, "unaligned": nun2,
                      "hits": len(hits2), "launches": launches2,
+                     "k3_walk_batches": k3_batches,
                      "cpu_equal_lines": cpu_lines2, "cpu_slice_s": cpu_s2,
                      "summary": err2.strip().splitlines()},
           "a_m3_dense_sa_library": {"wall_s": wall3,
@@ -1427,7 +1403,7 @@ def phase_cli(rng, work, device, genome, rep_starts, seg_len, base, idx,
                                     "launches": launches3},
           "cpu_slice_reads": CPU_SLICE,
           "planted_exact_reads": int(exact.sum())})
-    return runs
+    return runs, k3_batches
 
 
 V_SLICE = 400
@@ -2315,7 +2291,8 @@ def pe_case(name, al, pairs, cap, max_steps, device, work=None):
 
 
 def k12_case(pair, mat, lens, efw, device):
-    """K12 against its plain version on one matrix, then both timed.
+    """K12 against its plain version on one matrix, timed there (the
+    plain version's one run, the one it is held to) and alone.
     Bound: K2's model (bounds), with the LF steps and words the plain
     version counts; the index bytes are the smaller of both indexes read
     once and every sector the search touches (an ftab entry's two, each
@@ -2323,7 +2300,8 @@ def k12_case(pair, mat, lens, efw, device):
     top, bot = exact_ranges_cat(pair, mat, lens, efw)
     n = mat.shape[0]
     work = torch.zeros(2, n, dtype=torch.int64, device=device)
-    ptop, pbot = exact_ranges_cat_plain(pair, mat, lens, efw, work)
+    (ptop, pbot), plain_ms = time_once(
+        lambda: exact_ranges_cat_plain(pair, mat, lens, efw, work), device)
     err = max_abs_err([(top, ptop), (bot, pbot)])
     require(err == 0, f"K12 disagrees with its plain version by {err} on "
             f"{n} lanes")
@@ -2335,8 +2313,7 @@ def k12_case(pair, mat, lens, efw, device):
     return dict(
         ms=time_ms(lambda: exact_ranges_cat(pair, mat, lens, efw), device,
                    20),
-        plain_ms=time_ms(lambda: exact_ranges_cat_plain(pair, mat, lens,
-                                                        efw), device, 5),
+        plain_ms=plain_ms,
         **bounds(index + _nbytes(mat, lens, efw) + 16 * n, 2 * lf_steps, 0,
                  words, sectors), index_bytes=index,
         max_abs_err=err, lanes=n, L=mat.shape[1],
@@ -3220,8 +3197,12 @@ def main() -> int:
     stats.update(timed("dfs", phase_dfs, rng, work, device, genome,
                        rep_starts, seg_len, idx, idx_bw, golden))
     timed("build_sais", check_sais)
-    runs.update(timed("cli", phase_cli, rng, work, device, genome,
-                      rep_starts, seg_len, base, idx, fm_sa, CLI_READS, gpu))
+    cli_runs, k3_batches = timed("cli", phase_cli, rng, work, device, genome,
+                                 rep_starts, seg_len, base, idx, fm_sa,
+                                 CLI_READS, gpu)
+    runs.update(cli_runs)
+    # K3 walk held to plain on the rows of the CLI's -a batch
+    stats["K3w"]["cli_a_batches"] = k3_batches
     runs.update(timed("cli_v", phase_cli_v, rng, work, device, genome,
                       rep_starts, seg_len, base, idx, idx_bw, golden,
                       CLI_READS, gpu))
@@ -3271,7 +3252,7 @@ def main() -> int:
     # K14's: the CLI's first --best batch
     stats["K14"] = dict(k14_batch, pairs=CLI_BATCH)
     counter = {"K2": "exact_ranges", "K12": "exact_ranges_cat",
-               "K3w": "resolve_rows_walk",
+               "K3w": "resolve_rows_walk", "K3t": "walk_table",
                "K3s": "resolve_rows_sa", "K4": "one_row",
                "K6": "derive_rows", "K7": "dfs_machine", "K8": "dfs_pack",
                "K9": "derive_b_jobs", "K10": "best_machine",

@@ -23,8 +23,10 @@ CLI's exact gate runs them, on one CLI batch (8,192 reads, 16,384
 strands) and on 2^20 reads (2^21 strands, chip_smoke.py phase kernels'
 size), medians of 20 CUDA-event timings, and records the BWT rows of
 every K3 walk-left launch of the configurations' timed runs: for each, its
-row count, walk steps and bound (chip_smoke.py's K3 walk bound, the steps
-counted by resolve_rows_plain on the card) and K3's time on those rows.
+row count, walk steps, longest walk and bound (chip_smoke.py's K3 walk
+bound, the steps counted by resolve_rows_plain on the card), the warp
+efficiency of its schedule and K3's time on those rows; and of every K4
+launch, its strands, steps, longest chain and K4's time on them.
 """
 from __future__ import annotations
 
@@ -49,8 +51,10 @@ import chip_smoke as cs  # noqa: E402
 from bowtie_tpu_torch.align import dfs_device as dfs  # noqa: E402
 from bowtie_tpu_torch.align import pipeline  # noqa: E402
 from bowtie_tpu_torch.align.exact import (  # noqa: E402
-    exact_ranges, resolve_rows, resolve_rows_plain)
-from bowtie_tpu_torch.align.pipeline import one_row  # noqa: E402
+    exact_ranges, resolve_rows, resolve_rows_lanes, resolve_rows_plain,
+    walk_table)
+from bowtie_tpu_torch.align.pipeline import (  # noqa: E402
+    one_row, one_row_plain)
 from bowtie_tpu_torch.build.builder import build_index  # noqa: E402
 from bowtie_tpu_torch.cli import align as cli  # noqa: E402
 from bowtie_tpu_torch.index.arrays import from_ebwt  # noqa: E402
@@ -100,36 +104,71 @@ def kernel_batch_ms(rng, genome, rep, base, n_reads):
                                 20)}
 
 
-def k3_walk_launches(run_fn):
-    """Run run_fn() with the CLI's K3 calls (align/pipeline.py) recorded;
-    -> one dict per walk-left launch: its rows, walk steps, the bound
-    chip_smoke.py gives K3 walk for them, and K3's time on them (median of
-    20), then run_fn's result."""
-    real, seen = pipeline.resolve_rows, []
+def recorded(module, name, run_fn):
+    """Run run_fn() with module.name (a kernel wrapper the CLI calls)
+    wrapped to keep clones of its arguments; -> (the calls' arguments,
+    run_fn's result)."""
+    real, seen = getattr(module, name), []
 
-    def rec(fm, rows):
-        if fm.sa is None:
-            seen.append((fm, rows.clone()))
-        return real(fm, rows)
-    pipeline.resolve_rows = rec
+    def rec(*a):
+        seen.append([x.clone() if isinstance(x, torch.Tensor) else x
+                     for x in a])
+        return real(*a)
+    setattr(module, name, rec)
     try:
         res = run_fn()
     finally:
-        pipeline.resolve_rows = real
+        setattr(module, name, real)
+    return seen, res
+
+
+def k3_walk_launches(run_fn):
+    """Run run_fn() with the CLI's K3 calls (align/pipeline.py) recorded;
+    -> one dict per walk-left launch: its rows, walk steps, longest walk,
+    the bound chip_smoke.py gives K3 walk for them, K3's time on them
+    (median of 20) and the warp efficiency of its schedule (row steps over
+    the lane slots of its warps' iterations, exact.resolve_rows_lanes),
+    then run_fn's result."""
+    seen, res = recorded(pipeline, "resolve_rows", run_fn)
     out = []
     dev = torch.device("cuda")
     for fm, rows in seen:
+        if fm.sa is not None:
+            continue
         m = rows.numel()
         walk = torch.zeros(2, m, dtype=torch.int64, device=dev)
         resolve_rows_plain(fm, rows, walk)
         steps, words = (int(x) for x in walk.sum(1))
-        b = cs.bounds(cs._nbytes(fm.bwt, fm.occ, fm.offs, rows) + 9 * m,
-                      steps, steps, words, 2 * steps + m)
+        b = cs.bounds(cs._nbytes(walk_table(fm), fm.offs, rows) + 9 * m,
+                      steps, steps, words,
+                      cs.SECTORS_PER_WALK_STEP * steps + m)
+        iters = resolve_rows_lanes(fm, rows)[2]
+        slots = 32 * int(iters.sum())
         out.append(dict(rows=m, walk_steps=steps, max_walk=int(walk[0].max())
                         if m else 0, bound_ms=b["bound_ms"],
                         bound_by=b["bound_by"],
+                        warp_efficiency=steps / max(1, slots),
                         ms=cs.time_ms(lambda: resolve_rows(fm, rows), dev,
                                       20)))
+    return out, res
+
+
+def k4_launches(run_fn):
+    """Run run_fn() with the CLI's K4 calls (align/pipeline.py one_row)
+    recorded; -> one dict per launch: its strands, LF and walk steps, the
+    longest chain of one strand (one_row_plain's work count) and K4's
+    time on them (median of 20), then run_fn's result."""
+    seen, res = recorded(pipeline, "one_row", run_fn)
+    out = []
+    dev = torch.device("cuda")
+    for fm, mat, lens, seeds in seen:
+        n = mat.shape[0]
+        work = torch.zeros(2, n, dtype=torch.int64, device=dev)
+        one_row_plain(fm, mat, lens, seeds, work)
+        out.append(dict(strands=n, steps=int(work[0].sum()),
+                        max_chain=int(work[0].max()),
+                        ms=cs.time_ms(lambda: one_row(fm, mat, lens, seeds),
+                                      dev, 20)))
     return out, res
 
 
@@ -198,6 +237,7 @@ def main() -> int:
         if args.kernels and kind != "pairs":
             row["k3_walk_launches"], _ = k3_walk_launches(
                 lambda: run(argv))
+            row["k4_launches"], _ = k4_launches(lambda: run(argv))
         if not args.no_cprofile:
             prof = cProfile.Profile()
             prof.enable()

@@ -2,7 +2,9 @@
 csrc/ilv.cu, csrc/sa.cu) against
 their plain PyTorch versions, on the card: K2, K3 (walk and dense SA) and
 K4 must agree element for element, also on an index whose SA sample is
-thinned so that most walks pass MAX_WALK and end with ok=False; K15 (K2
+thinned so that most walks pass MAX_WALK and end with ok=False, and on
+the rows and strands of one CLI batch (K3 walk under -a -m 3, K4 under
+-k 1); K15 (K2
 and K3 fused, parallel/mesh.py) and the K3 remainder, also over a
 two-entry mesh on one card; K12 (K2
 with a per-lane choice of the forward or the mirror index); K6, K7 and
@@ -359,6 +361,67 @@ def test_best_kernels_match_plain(card, tmp_path, kw, pol, dense):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["best_machine"] == 1
     assert kernels.LAUNCHES["best_pack"] == 1
+
+
+def _cli_batch(refs, tmp_path, n=8192, seed=9):
+    """One CLI batch of n seeded reads of _reads' mix, as the CLI reads
+    them (FASTQ through ReadSource)."""
+    from bowtie_tpu_torch.io.readers import ReadSource
+    path = tmp_path / "batch.fq"
+    path.write_text("".join(
+        f"@r{i}\n{s}\n+\n{'I' * len(s)}\n" for i, s in enumerate(
+            "".join("ACGTN"[c] for c in q) for q in _reads(refs, n, seed))))
+    return list(ReadSource([str(path)]).records())
+
+
+@pytest.mark.parametrize("form", ["walk", "thin"])
+def test_walk_on_cli_a_batch(card, tmp_path, monkeypatch, form):
+    """K3 walk on the rows ExactAligner hands it for one CLI batch under
+    -a -m 3 (every row of every range, in chase order), equal to its
+    plain version row for row; each warp's iterations cover the rows'
+    steps (a lane slot a step and one a row)."""
+    from bowtie_tpu_torch.align import pipeline
+    from bowtie_tpu_torch.align.policy import INF, KPolicy
+    idx, refs = card
+    fm = from_ebwt(idx, device="cuda")
+    if form == "thin":
+        fm = thinned(fm)
+    seen, real = [], pipeline.resolve_rows
+    monkeypatch.setattr(pipeline, "resolve_rows", lambda f, rows: (
+        seen.append(rows.clone()), real(f, rows))[1])
+    al = pipeline.ExactAligner(fm, idx, KPolicy(khits=INF, mhits=3))
+    al.align_batch(_cli_batch(refs, tmp_path))
+    (rows,) = seen
+    assert rows.numel() > 50_000
+    off, ok = tex.resolve_rows(fm, rows)
+    work = torch.zeros(2, rows.numel(), dtype=torch.int64, device="cuda")
+    poff, pok = tex.resolve_rows_plain(fm, rows, work)
+    assert torch.equal(off, poff) and torch.equal(ok, pok)
+    assert bool(ok.all()) == (form == "walk")
+    loff, lok, iters = tex.resolve_rows_lanes(fm, rows)
+    assert torch.equal(loff, off) and torch.equal(lok, ok)
+    assert 32 * int(iters.sum()) >= int(work[0].sum()) + rows.numel()
+
+
+def test_one_row_on_cli_batch(card, tmp_path, monkeypatch):
+    """K4 on the strands of one CLI -k 1 batch (8,192 reads, both
+    strands, the reads' own seeds) equal to its plain version strand for
+    strand, on the walk-left index and on the thinned one."""
+    from bowtie_tpu_torch.align import pipeline
+    from bowtie_tpu_torch.align.policy import KPolicy
+    idx, refs = card
+    fm = from_ebwt(idx, device="cuda")
+    seen, real = [], pipeline.one_row
+    monkeypatch.setattr(pipeline, "one_row", lambda *a: (
+        seen.append([x.clone() for x in a[1:]]), real(*a))[1])
+    pipeline.ExactAligner(fm, idx, KPolicy()).align_batch(
+        _cli_batch(refs, tmp_path))
+    (args,) = seen
+    assert args[0].shape[0] == 16384
+    for f in (fm, thinned(fm)):
+        res = real(f, *args)
+        assert torch.equal(res, one_row_plain(f, *args))
+        assert int((res[0] > 0).sum()) > 5000
 
 
 @pytest.mark.parametrize("args", [["-v", "0"], ["-v", "0", "-a", "-S"],

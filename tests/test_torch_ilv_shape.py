@@ -7,8 +7,8 @@
 - the wrapper's refusals (check_inputs) and its CPU path, which is
   run_ilv_plain unchanged and launches nothing;
 - the kernel source itself, built with g++ against
-  tests/cuda_stub/cuda_runtime.h (a block's threads as std::threads, a
-  std::barrier for __syncthreads and __syncwarp, __ballot_sync and
+  tests/cuda_stub/cuda_runtime.h (a block's threads as fibers, a
+  barrier for __syncthreads and __syncwarp, __ballot_sync and
   __shfl_sync through a per-warp exchange array; launches rewritten to
   emu_launch), its shared memory poisoned before each block: every output
   and each pair's iterations equal to run_ilv_plain's on up to 48 pairs of

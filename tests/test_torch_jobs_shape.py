@@ -6,7 +6,7 @@ and derive_b_jobs_kernel, a warp per lane) on the CPU:
 - the wrappers' CPU paths, which are the plain versions and launch
   nothing;
 - the kernel source itself, built with g++ against
-  tests/cuda_stub/cuda_runtime.h (a block's threads as std::threads,
+  tests/cuda_stub/cuda_runtime.h (a block's threads as fibers,
   __ballot_sync and __shfl_sync through a per-warp exchange array;
   launches rewritten to emu_launch), its shared memory poisoned before
   each block and its outputs before each call: every byte of both outputs
